@@ -1,0 +1,99 @@
+"""MANO forward in PyTorch: blend shapes, forward kinematics, skinning
+(``hoisdf_tpu/mano/layer.py``, the axis-angle path the eval head uses).
+
+Geometry runs in f32 whatever the model's compute type; on the card f32
+matmuls stay full f32 unless TF32 is switched on.  Outputs are millimetres.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from hoisdf_torch.mano.model import (
+    JOINT_REORDER,
+    LEV1_IDXS,
+    LEV2_IDXS,
+    LEV3_IDXS,
+    TIPS_RIGHT,
+    TRANSFORM_REORDER,
+    ManoModel,
+)
+from hoisdf_torch.ops.rotations import batch_rodrigues
+
+
+class ManoBuffers(NamedTuple):
+    betas: torch.Tensor  # [10]
+    shapedirs: torch.Tensor  # [778, 3, 10]
+    posedirs: torch.Tensor  # [778, 3, 135]
+    v_template: torch.Tensor  # [778, 3]
+    j_regressor: torch.Tensor  # [16, 778]
+    weights: torch.Tensor  # [778, 16]
+
+    @classmethod
+    def from_model(cls, m: ManoModel, device="cpu") -> "ManoBuffers":
+        return cls(*(torch.as_tensor(getattr(m, f), dtype=torch.float32).to(device)
+                     for f in cls._fields))
+
+    def to(self, device) -> "ManoBuffers":
+        return ManoBuffers(*(t.to(device) for t in self))
+
+
+def _rigid_transform(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] rotation + [..., 3] translation -> [..., 4, 4]."""
+    top = torch.cat([rot, trans[..., :, None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def mano_forward(buffers: ManoBuffers, pose_coeffs: torch.Tensor,
+                 betas: Optional[torch.Tensor] = None):
+    """pose [B, 48] axis-angle (global rot first), betas [B, 10] or None for
+    the template shape -> (verts [B,778,3], joints [B,21,3]) in mm, centred on
+    the root joint (flat hand mean, no PCA, right-hand fingertips)."""
+    batch = pose_coeffs.shape[0]
+    dev, dtype = pose_coeffs.device, pose_coeffs.dtype
+    rot_mats = batch_rodrigues(pose_coeffs[:, :48].reshape(-1, 3)).reshape(batch, 16, 3, 3)
+    root_rot = rot_mats[:, 0]
+    rot_map = rot_mats[:, 1:]
+    pose_map = (rot_map - torch.eye(3, dtype=dtype, device=dev)).reshape(batch, 135)
+
+    if betas is None:
+        v_shaped = (torch.einsum("vds,s->vd", buffers.shapedirs, buffers.betas)
+                    + buffers.v_template)
+        joints = (buffers.j_regressor @ v_shaped).expand(batch, 16, 3)
+        v_shaped = v_shaped.expand(batch, -1, 3)
+    else:
+        v_shaped = (torch.einsum("vds,bs->bvd", buffers.shapedirs, betas)
+                    + buffers.v_template[None])
+        joints = torch.einsum("jv,bvd->bjd", buffers.j_regressor, v_shaped)
+    v_posed = v_shaped + torch.einsum("vdp,bp->bvd", buffers.posedirs, pose_map)
+
+    lev1, lev2, lev3 = (torch.tensor(i, device=dev) for i in (LEV1_IDXS, LEV2_IDXS, LEV3_IDXS))
+    root_j = joints[:, 0]
+    root_t = _rigid_transform(root_rot, root_j)
+    lev1_t = root_t[:, None] @ _rigid_transform(rot_map[:, lev1 - 1],
+                                                joints[:, lev1] - root_j[:, None])
+    lev2_t = lev1_t @ _rigid_transform(rot_map[:, lev2 - 1], joints[:, lev2] - joints[:, lev1])
+    lev3_t = lev2_t @ _rigid_transform(rot_map[:, lev3 - 1], joints[:, lev3] - joints[:, lev2])
+    all_t = torch.cat([root_t[:, None], lev1_t, lev2_t, lev3_t], dim=1)
+    all_t = all_t[:, torch.tensor(TRANSFORM_REORDER, device=dev)]  # [B,16,4,4]
+
+    joints_h = torch.cat([joints, torch.zeros(batch, 16, 1, dtype=dtype, device=dev)], dim=-1)
+    tmp = torch.einsum("bjrc,bjc->bjr", all_t, joints_h)
+    correction = torch.zeros_like(all_t)
+    correction[..., :, 3] = tmp
+    rel_t = all_t - correction
+
+    skin_t = torch.einsum("vj,bjrc->bvrc", buffers.weights, rel_t)
+    v_posed_h = torch.cat([v_posed, torch.ones(batch, v_posed.shape[1], 1, dtype=dtype,
+                                               device=dev)], dim=-1)
+    verts = torch.einsum("bvrc,bvc->bvr", skin_t, v_posed_h)[..., :3]
+
+    tips = torch.tensor(TIPS_RIGHT, device=dev)
+    jtr = torch.cat([all_t[:, :, :3, 3], verts[:, tips]], dim=1)
+    jtr = jtr[:, torch.tensor(JOINT_REORDER, device=dev)]
+    center = jtr[:, :1]
+    return (verts - center) * 1000.0, (jtr - center) * 1000.0

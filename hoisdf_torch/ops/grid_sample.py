@@ -1,0 +1,41 @@
+"""Pixel-aligned feature gather (``hoisdf_tpu/ops/grid_sample.py``).
+
+Feature maps are NHWC, as in the JAX package; the point axis is a flat list of
+P query points per image.  The multi-level gather is one launch of the
+``gather_lerp`` kernel on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp, grid_sample_bilinear
+
+__all__ = ["grid_sample_bilinear", "multiscale_point_features", "pixels_to_grid",
+           "project_points"]
+
+
+def multiscale_point_features(
+    feature_pyramid: Dict[str, torch.Tensor],
+    grid: torch.Tensor,
+    layer_names: Sequence[str],
+) -> torch.Tensor:
+    """Bilinear-sample every named NHWC level at ``grid`` [B,P,2] and
+    channel-concatenate in ``layer_names`` order -> [B, P, sum(C_l)]."""
+    return gather_lerp(grid, [feature_pyramid[name] for name in layer_names])
+
+
+def project_points(points_cam: torch.Tensor, cam_intr: torch.Tensor) -> torch.Tensor:
+    """Pinhole projection: points [B,P,3], intrinsics [B,3,3] -> pixels [B,P,2]."""
+    p2d = torch.einsum("bpc,bkc->bpk", points_cam, cam_intr)
+    return p2d[..., :2] / p2d[..., 2:3]
+
+
+def pixels_to_grid(pix: torch.Tensor, img_shape: Tuple[int, int]) -> torch.Tensor:
+    """Pixel coords -> [-1, 1] grid coords; the normalizer is (size-1)/2."""
+    h, w = img_shape
+    normalizer = torch.tensor([(w - 1) / 2.0, (h - 1) / 2.0], dtype=pix.dtype,
+                              device=pix.device)
+    return (pix - normalizer) / normalizer
