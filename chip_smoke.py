@@ -9,12 +9,15 @@ Phases, each printing one JSON line:
 2. kernel  - each kernel against its plain PyTorch version on the card, f32
              and bf16, at the serving shapes, with its time, the plain
              version's time, one stock PyTorch call's time and its bound.
+             The SDF MLP's biases are drawn, and each must move the output
+             by more than the tolerance.
 3. forward - the full-width dexycb eval forward, batch 2, f32 with TF32 off:
-             card (through the kernels) against CPU (plain versions).
+             card (through the kernels) against CPU (plain versions), with
+             drawn SDF decoder biases.
 4. serve   - the main path: a dexycb Predictor at bf16, batch 22, answers
-             requests on the u8 and the f32 wire; p50 latency, frames/s,
-             peak memory, kernel launches per step (from the wrappers'
-             counters, zeroed just before the requests).
+             40 requests on each of the u8 and the f32 wire, in turn; p50
+             and p90 latency, frames/s, peak memory, kernel launches per step
+             (from the wrappers' counters, zeroed just before the requests).
 5. kernels - one line listing both kernels with their numbers.
 
 Any failed check raises, and the script exits non-zero.  The last line is
@@ -71,36 +74,60 @@ def bound(flops: float, flop_rate: float, nbytes: float):
 
 # ---- phase 2: kernels against their plain versions ---------------------------
 
+def _bias_effect(x, weights) -> float:
+    """The least change in the plain output, over the five biases, that
+    zeroing one bias makes: a kernel that drops a bias misses by this much."""
+    import torch
+
+    from hoisdf_torch.ops.kernels.sdf_mlp import sdf_mlp_plain
+
+    base = sdf_mlp_plain(x, weights)
+    effects = []
+    for j in (1, 3, 5, 7, 9):
+        w = list(weights)
+        w[j] = torch.zeros_like(w[j])
+        effects.append((sdf_mlp_plain(x, w) - base).abs().max().item())
+    return min(effects)
+
+
 def check_sdf_mlp(device, rows_big: int, seed: int = 0):
     import torch
     import torch.nn.functional as F
 
     from hoisdf_torch.models.hoisdf import init_weights
     from hoisdf_torch.models.sdf_decoder import SDFDecoder
-    from hoisdf_torch.ops.kernels.sdf_mlp import fold_weight_norm, sdf_mlp, sdf_mlp_plain
+    from hoisdf_torch.ops.kernels.sdf_mlp import (
+        fold_weight_norm, prepare_weights, sdf_mlp, sdf_mlp_plain)
 
     g = torch.Generator().manual_seed(seed)
     timed = None
     for latent, n in ((256, rows_big + 37), (64, 2 * 3584 + 37)):
         dec = init_weights(SDFDecoder(latent, 33), seed)
-        with torch.no_grad():  # spread the gains so every layer's output matters
-            for i in range(4):
-                getattr(dec, f"linh{i}").weight_g.uniform_(0.5, 1.5, generator=g)
-        weights = [w.to(device) for w in fold_weight_norm(dec)]
+        # Spread the gains so every layer's output matters, and draw every
+        # bias (the init zeroes them), so that a dropped or misread bias shows.
+        with torch.no_grad():
+            for i in range(5):
+                lin = getattr(dec, f"linh{i}")
+                lin.bias.uniform_(-0.5, 0.5, generator=g)
+                if i < 4:
+                    lin.weight_g.uniform_(0.5, 1.5, generator=g)
+        folded = [w.to(device) for w in fold_weight_norm(dec)]
         x32 = (torch.randn(n, latent + 33, generator=g) * 0.5).to(device)
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             x = x32.to(dtype)
+            weights = prepare_weights(folded, dtype)
             got = sdf_mlp(x, weights)
             torch.cuda.synchronize()
-            want = sdf_mlp_plain(x, weights)
+            want = sdf_mlp_plain(x, weights.plain)
             err = (got - want).abs().max().item()
-            ok = bool(torch.isfinite(got).all()) and err <= tol
+            effect = _bias_effect(x, weights.plain)
+            ok = bool(torch.isfinite(got).all()) and err <= tol < effect
             res = {"phase": "kernel", "kernel": "sdf_mlp", "in_dim": latent + 33,
-                   "hidden": weights[0].shape[1], "rows": n, "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "tol": tol, "ok": ok}
+                   "hidden": folded[0].shape[1], "rows": n, "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "tol": tol, "least_bias_effect": effect, "ok": ok}
             if latent == 256 and dtype == torch.bfloat16:
                 xs = x[:rows_big].contiguous()
-                wb = [w.to(dtype) for w in weights]
+                wb = weights.plain
 
                 def library():  # the stock bf16 matmul chain (cuBLAS)
                     h = F.relu(F.linear(xs, wb[0].t(), wb[1]))
@@ -109,10 +136,10 @@ def check_sdf_mlp(device, rows_big: int, seed: int = 0):
                     h = F.relu(F.linear(h, wb[6].t(), wb[7]))
                     return torch.tanh(F.linear(h, wb[8].t(), wb[9]))
 
-                macs = sum(w.numel() for w in weights[0::2])
+                macs = sum(w.numel() for w in wb[0::2])
                 nbytes = xs.numel() * 2 + rows_big * 4 + sum(w.numel() * 2 for w in wb)
                 b_ms, b_by = bound(2.0 * rows_big * macs, H100_BF16_FLOPS, nbytes)
-                timed = {"ms": time_ms(lambda: sdf_mlp(xs, wb)),
+                timed = {"ms": time_ms(lambda: sdf_mlp(xs, weights)),
                          "plain_ms": time_ms(lambda: sdf_mlp_plain(xs, wb)),
                          "library_ms": time_ms(library), "bound_ms": b_ms,
                          "bound_by": b_by, "max_abs_err": err, "rows": rows_big,
@@ -121,7 +148,8 @@ def check_sdf_mlp(device, rows_big: int, seed: int = 0):
                                                   "bound_ms", "bound_by")})
             emit(res)
             if not ok:
-                raise AssertionError(f"sdf_mlp disagrees with its plain version: {res}")
+                raise AssertionError(f"sdf_mlp disagrees with its plain version, or a "
+                                     f"bias would go unseen: {res}")
     return timed
 
 
@@ -185,6 +213,23 @@ def _lattice_ids(points_scaled, bins_n):
     return (ijk[..., 0] * bins_n + ijk[..., 1]) * bins_n + ijk[..., 2]
 
 
+def build_biased_model(cfg, seed: int = 0):
+    """``build_model``'s seeded weights, with the two SDF decoders' biases
+    drawn uniform(-0.1, 0.1): the init zeroes them, and a kernel that
+    dropped or misread a bias would then agree with its plain version."""
+    import torch
+
+    from hoisdf_torch.models.hoisdf import build_model
+
+    model = build_model(cfg, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for dec in (model.hand_sdf_decoder, model.obj_sdf_decoder):
+            for i in range(5):
+                getattr(dec, f"linh{i}").bias.uniform_(-0.1, 0.1, generator=g)
+    return model
+
+
 HAND_KEYS = ("hand_points", "hand_sdf", "hand_points_notrans", "hand_off", "hand_cls")
 OBJ_KEYS = ("obj_points", "obj_sdf", "obj_rot", "obj_trans")
 
@@ -215,14 +260,13 @@ def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e
     from hoisdf_torch.data.synthetic import synthetic_batch
     from hoisdf_torch.mano.layer import ManoBuffers
     from hoisdf_torch.mano.model import make_synthetic_mano
-    from hoisdf_torch.models.hoisdf import build_model
     from hoisdf_torch.train import make_eval_step
 
     inputs = synthetic_batch(cfg, batch_size, seed=seed)
     mano = ManoBuffers.from_model(make_synthetic_mano(0))
     runs, repeat_equal, cpu_s = {}, None, 0.0
     for dev in (device, "cpu"):
-        model = build_model(cfg, seed)
+        model = build_biased_model(cfg, seed)
         step = make_eval_step(cfg, model, mano, supervise_sdf=False, device=dev)
         t0 = time.perf_counter()
         with torch.inference_mode():
@@ -285,12 +329,13 @@ def serve(cfg, batch_size: int, requests: int, device):
     from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
     from hoisdf_torch.predictor import Predictor
 
-    f32 = Predictor(cfg, batch_size, "float32", device=device)
-    u8 = Predictor(cfg, batch_size, "uint8", device=device,
-                   state_dict=f32.model.state_dict())
-    frames = [synthetic_batch(cfg, batch_size, seed=100 + i) for i in range(requests)]
-    # u8 frames, as a camera gives them, for the u8 wire; the same values
-    # normalized on the host for the f32 wire
+    state = build_biased_model(cfg).state_dict()
+    f32 = Predictor(cfg, batch_size, "float32", device=device, state_dict=state)
+    u8 = Predictor(cfg, batch_size, "uint8", device=device, state_dict=state)
+    # eight distinct batches, sent in turn: u8 frames, as a camera gives
+    # them, for the u8 wire; the same values normalized on the host for the
+    # f32 wire
+    frames = [synthetic_batch(cfg, batch_size, seed=100 + i) for i in range(8)]
     frames_u8 = [dict(fr, img=wire.quantize_image_u8(fr["img"])) for fr in frames]
     frames = [dict(fr, img=fr["img"].astype(np.float32) / 255.0) for fr in frames_u8]
     f32.warmup()
@@ -299,9 +344,9 @@ def serve(cfg, batch_size: int, requests: int, device):
 
     reset_launch_counts()
     outs = {"uint8": [], "float32": []}
-    for fr_u8, fr in zip(frames_u8, frames):  # the wires take turns
-        outs["uint8"].append(u8.predict(fr_u8))
-        outs["float32"].append(f32.predict(fr))
+    for i in range(requests):  # the wires take turns
+        outs["uint8"].append(u8.predict(frames_u8[i % len(frames)]))
+        outs["float32"].append(f32.predict(frames[i % len(frames)]))
     torch.cuda.synchronize(device)
     counts = dict(launch_counts)
     steps = 2 * requests
@@ -320,6 +365,7 @@ def serve(cfg, batch_size: int, requests: int, device):
     res = {"phase": "serve", "batch": batch_size, "compute_dtype": cfg.compute_dtype,
            "requests_per_wire": requests,
            "p50_ms": {w: s["p50_ms"] for w, s in lat.items()},
+           "p90_ms": {w: s["p90_ms"] for w, s in lat.items()},
            "frames_per_s": {w: batch_size / s["p50_ms"] * 1e3 for w, s in lat.items()},
            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
            "launches": counts, "launches_per_step": per_step,
@@ -394,7 +440,7 @@ def main() -> int:
     compare_forward(get_config("dexycb", compute_dtype="float32"), 2, device)
 
     serve_res, predictor = serve(get_config("dexycb", compute_dtype="bfloat16"),
-                                 serve_batch, requests=10, device=device)
+                                 serve_batch, requests=40, device=device)
     profile_step(predictor)
 
     launches = serve_res["launches"]

@@ -23,15 +23,15 @@
 // nothing is copied.  Ragged N is masked, not padded.
 //   bf16 (serving): the four hidden layers run on the tensor cores with
 //     mma.sync m16n8k16 (bf16 in, f32 accumulate); 8 warps each own 16 rows x
-//     64 columns of a 128-column pass.  The wrapper packs each weight as W^T,
-//     zero-padded, so a 128 x 32 slice is a run of 16-byte cp.async copies,
+//     64 columns of a 128-column pass.  Each weight comes packed as W^T,
+//     zero-padded (once per forward, by the wrapper module's
+//     prepare_weights), so a 128 x 32 slice is a run of 16-byte cp.async copies,
 //     streamed three slices ahead of the MMAs through a 4-buffer ring, and a
 //     B fragment is two 32-bit shared loads.
 //   f32 (parity runs): CUDA-core FMAs, a 2 x 4 register tile per thread, so
 //     f32 stays f32 (the tensor cores would round it to TF32).
 // The 512 -> 1 output layer is a warp-per-row dot product in both.  Not yet
-// done: wgmma, TMA, more rows per block, packing the weights once per
-// forward instead of per launch (the next steps).
+// done: wgmma, TMA, more rows per block (the next steps).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -307,7 +307,7 @@ cudaError_t set_smem(const void* kern, size_t smem) {
 
 // x: [n, in_dim]; w: the ten pointers w0, b0, ..., w4, b4; h: the four hidden
 // widths.  dtype 0 = float32: w0..w3 are [in, out].  dtype 1 = bfloat16: w0..w3
-// are packed as the wrapper's _pack_bf16 does (W^T zero-padded to
+// are packed as the wrapper module's _pack_bf16 does (W^T zero-padded to
 // [round128(out), sum of round32(k) over the layer's k-ranges]).  Returns a
 // cudaError_t.
 extern "C" int sdf_mlp_launch(const void* x, int dtype, int n, int in_dim,

@@ -37,7 +37,7 @@ from hoisdf_torch.ops.grid_sample import (
     pixels_to_grid,
     project_points,
 )
-from hoisdf_torch.ops.kernels.sdf_mlp import fold_weight_norm, sdf_mlp
+from hoisdf_torch.ops.kernels.sdf_mlp import fold_weight_norm, prepare_weights, sdf_mlp
 from hoisdf_torch.ops.nerf import nerf_positional_encoding
 from hoisdf_torch.ops.point_sampling import scaled_to_cam, sdf_guided_sample_hierarchical
 
@@ -134,7 +134,7 @@ class HOISDF(nn.Module):
         The sampler's sdf is unclamped; only the selected values are clamped."""
         c = self.cfg
         decoder = self.hand_sdf_decoder if which == "hand" else self.obj_sdf_decoder
-        weights = tuple(w.to(self.compute_dtype) for w in fold_weight_norm(decoder))
+        weights = prepare_weights(fold_weight_norm(decoder), self.compute_dtype)
 
         def sdf_fn(pts):  # [B, M, 3] -> [B, M]
             flat = self._sdf_decoder_inputs(pyramid, pts, center, cam_intr, sdf_scale)

@@ -2,14 +2,15 @@
 PyTorch version.
 
 Counterpart of ``hoisdf_tpu/ops/pallas/sdf_mlp.py``.  Used only inside the
-field-guided sampler (no backward, dropout off).  Weight-norm folding happens
-outside the kernel, once per forward.
+field-guided sampler (no backward, dropout off).  Weight-norm folding and the
+kernel's weight layout are made outside the kernel, once per forward
+(:func:`fold_weight_norm`, then :func:`prepare_weights`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -65,37 +66,67 @@ def _pack_bf16(w, h):
             out[:n, off:off + s.shape[0]] = s.t()
             off += _round(s.shape[0], 32)
         packed.append(out)
-    return packed
+    return tuple(packed)
 
 
-def sdf_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Fused SDF decode ``[N, in] -> [N, 1]`` f32.
+class MlpWeights(NamedTuple):
+    """The weights as :func:`sdf_mlp` takes them (:func:`prepare_weights`)."""
 
-    ``weights`` are the ten tensors of :func:`fold_weight_norm`; they are cast
-    to x's type (f32 or bf16).  CPU tensors take :func:`sdf_mlp_plain`."""
-    if x.device.type == "cpu":
-        return sdf_mlp_plain(x, weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"sdf_mlp: unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"sdf_mlp: x dtype {x.dtype} not in {list(_DTYPES)}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"sdf_mlp: x must be a contiguous [N, in] matrix, got {tuple(x.shape)}")
+    plain: Tuple[torch.Tensor, ...]  # the ten of fold_weight_norm, in one dtype
+    packed: Optional[Tuple[torch.Tensor, ...]]  # bf16: w0..w3 in the kernel's layout
+
+    @property
+    def in_dim(self) -> int:
+        return self.plain[0].shape[0]
+
+
+def prepare_weights(weights: Sequence[torch.Tensor], dtype: torch.dtype) -> MlpWeights:
+    """Cast the ten tensors of :func:`fold_weight_norm` to ``dtype`` (f32 or
+    bf16), check that their shapes chain, and for bf16 pack the four hidden
+    weights for the tensor cores (:func:`_pack_bf16`)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"sdf_mlp: dtype {dtype} not in {list(_DTYPES)}")
     if len(weights) != 10:
         raise ValueError(f"sdf_mlp: expected 10 weight tensors, got {len(weights)}")
-    w = [t.to(device=x.device, dtype=x.dtype).contiguous() for t in weights]
-    n, in_dim = x.shape
+    w = tuple(t.to(dtype).contiguous() for t in weights)
+    in_dim = w[0].shape[0]
     h = [w[0].shape[1], w[2].shape[1], w[4].shape[1], w[6].shape[1]]
     want = [(in_dim, h[0]), (h[0],), (h[0], h[1]), (h[1],), (h[1] + in_dim, h[2]),
             (h[2],), (h[2], h[3]), (h[3],), (h[3], 1), (1,)]
     got = [tuple(t.shape) for t in w]
     if got != want:
         raise ValueError(f"sdf_mlp: weight shapes {got} != expected {want}")
+    if len({t.device for t in w}) != 1:
+        raise ValueError("sdf_mlp: weights lie on more than one device")
+    return MlpWeights(w, _pack_bf16(w, h) if dtype == torch.bfloat16 else None)
+
+
+def sdf_mlp(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
+    """Fused SDF decode ``[N, in] -> [N, 1]`` f32.
+
+    ``weights`` come from :func:`prepare_weights` in x's type (f32 or bf16)
+    and on x's device.  CPU tensors take :func:`sdf_mlp_plain`."""
+    if x.device.type == "cpu":
+        return sdf_mlp_plain(x, weights.plain)
+    if x.device.type != "cuda":
+        raise ValueError(f"sdf_mlp: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"sdf_mlp: x dtype {x.dtype} not in {list(_DTYPES)}")
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"sdf_mlp: x must be a contiguous [N, in] matrix, got {tuple(x.shape)}")
+    w = list(weights.plain)
+    if w[0].dtype != x.dtype or w[0].device != x.device:
+        raise ValueError(f"sdf_mlp: weights are {w[0].dtype} on {w[0].device}, "
+                         f"x is {x.dtype} on {x.device}; prepare them for x")
+    n, in_dim = x.shape
+    if in_dim != weights.in_dim:
+        raise ValueError(f"sdf_mlp: x has {in_dim} columns, the weights take {weights.in_dim}")
+    h = [w[0].shape[1], w[2].shape[1], w[4].shape[1], w[6].shape[1]]
     out = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
     if x.dtype == torch.bfloat16:
-        w[0], w[2], w[4], w[6] = _pack_bf16(w, h)
+        w[0], w[2], w[4], w[6] = weights.packed
     lib = library()
     ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in w])
     dims = (ctypes.c_int * 4)(*h)

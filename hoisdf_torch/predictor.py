@@ -98,45 +98,34 @@ class Predictor:
         self._packed_step(self._template)
         self._sync()
 
-    def predict_async(self, frames: Mapping[str, np.ndarray]) -> Tuple[torch.Tensor, int]:
-        """Enqueue one step without waiting for it: returns the packed device
-        tensor (pass it to :meth:`materialize`) and the live row count."""
-        n = frames["img"].shape[0]
-        if n > self.batch_size:
-            raise ValueError(f"batch {n} > predictor batch {self.batch_size}")
-        batch = {}
-        for k in INPUT_KEYS:
-            if k not in frames:
-                batch[k] = self._template[k]
-                continue
-            v = np.asarray(frames[k])
-            if k == "img":
-                if self.transfer_dtype == "uint8":
-                    v = wire.quantize_image_u8(v)
-                elif v.dtype == np.uint8:
-                    v = v.astype(np.float32) / 255.0
-            if n < self.batch_size:
-                v = np.concatenate([v, np.repeat(v[-1:], self.batch_size - n, axis=0)], axis=0)
-            batch[k] = v
-        return self._packed_step(batch), n
-
-    def materialize(self, handle: torch.Tensor, n: int) -> Dict[str, np.ndarray]:
-        """Copy a packed result to the host (waits for the step) and unpack
-        it per key, trimmed to the ``n`` live rows."""
-        flat = handle.cpu().numpy()
-        out, off = {}, 0
-        for k, shape in self._pack_layout:
-            size = int(np.prod(shape))
-            out[k] = flat[:n, off:off + size].reshape((n,) + shape)
-            off += size
-        return out
-
     def predict(self, frames: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """frames: per-frame arrays with leading dim N <= batch_size.
         Returns numpy outputs trimmed to N."""
+        n = frames["img"].shape[0]
+        if n > self.batch_size:
+            raise ValueError(f"batch {n} > predictor batch {self.batch_size}")
         with self.stats.measure():
-            handle, n = self.predict_async(frames)
-            out = self.materialize(handle, n)
+            batch = {}
+            for k in INPUT_KEYS:
+                if k not in frames:
+                    batch[k] = self._template[k]
+                    continue
+                v = np.asarray(frames[k])
+                if k == "img":
+                    if self.transfer_dtype == "uint8":
+                        v = wire.quantize_image_u8(v)
+                    elif v.dtype == np.uint8:
+                        v = v.astype(np.float32) / 255.0
+                if n < self.batch_size:
+                    v = np.concatenate([v, np.repeat(v[-1:], self.batch_size - n, axis=0)])
+                batch[k] = v
+            # one device-to-host copy of the packed result (waits for the step)
+            flat = self._packed_step(batch).cpu().numpy()
+            out, off = {}, 0
+            for k, shape in self._pack_layout:
+                size = int(np.prod(shape))
+                out[k] = flat[:n, off:off + size].reshape((n,) + shape)
+                off += size
         return out
 
     def latency_summary(self) -> Dict[str, float]:

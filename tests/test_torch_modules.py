@@ -308,3 +308,16 @@ def test_synthetic_inputs_are_the_jax_packages_draws(tiny):
     assert set(got) <= set(want)
     for k, v in got.items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+# ---- config ----------------------------------------------------------------
+
+def test_config_fields_are_the_jax_packages_and_unported_presets_refuse():
+    got = get_config("dexycb", compute_dtype="bfloat16")
+    want = jax_get_config("dexycb", compute_dtype="bfloat16")
+    for f in got.__dataclass_fields__:
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.multiscale_dim == want.multiscale_dim
+    for setting in ("dexycb_full", "ho3d", "ho3d_render"):
+        with pytest.raises(ValueError, match="not ported"):
+            get_config(setting)

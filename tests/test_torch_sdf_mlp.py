@@ -13,7 +13,12 @@ import pytest
 import torch
 
 from hoisdf_torch.models.sdf_decoder import SDFDecoder as PortSDFDecoder
-from hoisdf_torch.ops.kernels.sdf_mlp import fold_weight_norm, sdf_mlp, sdf_mlp_plain
+from hoisdf_torch.ops.kernels.sdf_mlp import (
+    fold_weight_norm,
+    prepare_weights,
+    sdf_mlp,
+    sdf_mlp_plain,
+)
 from hoisdf_tpu.models.sdf_decoder import SDFDecoder
 from hoisdf_tpu.ops.pallas import sdf_mlp as jax_sdf_mlp
 
@@ -68,7 +73,8 @@ def test_plain_matches_pallas_interpret_and_reference(decoders, n):
         jnp.asarray(x), weights, tile=128, interpret=True))
     want_ref = np.asarray(jax_sdf_mlp.sdf_mlp_reference(jnp.asarray(x), weights))
     want_flax = np.asarray(dec.apply({"params": params}, jnp.asarray(x))[0])
-    got = sdf_mlp(torch.from_numpy(x), fold_weight_norm(port)).numpy()
+    got = sdf_mlp(torch.from_numpy(x),
+                  prepare_weights(fold_weight_norm(port), torch.float32)).numpy()
     assert got.shape == (n, 1) and got.dtype == np.float32
     for want in (want_kernel, want_ref, want_flax):
         np.testing.assert_allclose(got, want, atol=ATOL_F32)
@@ -84,9 +90,36 @@ def test_plain_bf16_matches_pallas_interpret(decoders):
     xb = jnp.asarray(x).astype(jnp.bfloat16)
     want = np.asarray(jax_sdf_mlp.sdf_mlp_fused(
         xb, jax_sdf_mlp.fold_weight_norm(params), tile=128, interpret=True))
-    got = sdf_mlp_plain(torch.from_numpy(x).bfloat16(), fold_weight_norm(port))
+    xt = torch.from_numpy(x).bfloat16()
+    got = sdf_mlp_plain(xt, fold_weight_norm(port))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL_BF16)
+    # the wrapper on CPU tensors is the plain version on the prepared weights
+    prepared = prepare_weights(fold_weight_norm(port), torch.bfloat16)
+    assert torch.equal(sdf_mlp(xt, prepared), got)
+
+
+def test_bf16_packing_holds_each_weight_transposed_in_its_k_range(decoders):
+    """Layer 2 takes [h1 | x]: two k-ranges, each starting at a multiple of
+    32; rows past the layer's width and columns between ranges are zero."""
+    _, _, port = decoders
+    folded = fold_weight_norm(port)
+    w = prepare_weights(folded, torch.bfloat16)
+    assert prepare_weights(folded, torch.float32).packed is None
+    h1 = folded[2].shape[1]
+    ranges = ([folded[0]], [folded[2]], [folded[4][:h1], folded[4][h1:]], [folded[6]])
+    for packed, segs in zip(w.packed, ranges):
+        n = segs[0].shape[1]
+        assert packed.dtype == torch.bfloat16 and packed.shape[0] % 128 == 0
+        expect = torch.zeros_like(packed)
+        off = 0
+        for s in segs:
+            expect[:n, off:off + s.shape[0]] = s.t().bfloat16()
+            off += -(-s.shape[0] // 32) * 32
+        assert packed.shape[1] == off
+        assert torch.equal(packed, expect)
+    with pytest.raises(ValueError, match="weight shapes"):
+        prepare_weights(folded[:8] + (folded[8][:-1], folded[9]), torch.float32)
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA card")
@@ -94,9 +127,9 @@ def test_plain_bf16_matches_pallas_interpret(decoders):
 def test_kernel_matches_plain_on_card(decoders, dtype, atol):
     _, _, port = decoders
     x = torch.randn(4 * 64 + 37, port.in_dim, generator=torch.Generator().manual_seed(0))
-    weights = [w.cuda() for w in fold_weight_norm(port)]
+    weights = prepare_weights([w.cuda() for w in fold_weight_norm(port)], dtype)
     xc = x.to("cuda", dtype)
     got = sdf_mlp(xc, weights)
     torch.cuda.synchronize()
-    want = sdf_mlp_plain(xc, weights)
+    want = sdf_mlp_plain(xc, weights.plain)
     assert (got - want).abs().max().item() <= atol
