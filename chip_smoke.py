@@ -9,8 +9,12 @@ Phases, each printing one JSON line:
 2. kernel  - each kernel against its plain PyTorch version on the card, f32
              and bf16, at the serving shapes, with its time, the plain
              version's time, one stock PyTorch call's time and its bound.
-             The SDF MLP's biases are drawn, and each must move the output
-             by more than the tolerance.
+             The SDF MLP is checked at ragged row counts around its tile
+             size, smallest first, and timed in bf16 at each of the eight
+             row counts of a serving step (their sum is step_ms).  Its biases
+             are drawn, and each must move the output by more than the
+             tolerance.  The gather is also timed on its fine levels (0-2)
+             and its coarse levels (3-4) alone.
 3. forward - the full-width dexycb eval forward, batch 2, f32 with TF32 off:
              card (through the kernels) against CPU (plain versions), with
              drawn SDF decoder biases.
@@ -18,7 +22,9 @@ Phases, each printing one JSON line:
              40 requests on each of the u8 and the f32 wire, in turn; p50
              and p90 latency, frames/s, peak memory, kernel launches per step
              (from the wrappers' counters, zeroed just before the requests).
-5. kernels - one line listing both kernels with their numbers.
+5. kernels - one line listing both kernels with their numbers; ms_before
+             is this script's reading of the kernel as it was before its
+             redesign for Hopper (same card type, same shapes).
 
 Any failed check raises, and the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no result.
@@ -37,6 +43,14 @@ H100_F32_FLOPS = 67e12  # CUDA-core f32 peak
 H100_HBM_BYTES = 3.35e12
 
 SDF_TPU = "hoisdf_tpu/ops/pallas/sdf_mlp.py:63"
+# Rows per image that the dexycb hier cascade scores, stage by stage: the
+# hand field, then the object field.  One serving step launches the SDF MLP
+# once for each, on batch x rows.
+SERVING_ROWS_PER_IMAGE = (512, 1024, 1792, 3584, 512, 832, 1472, 2944)
+RAGGED_ROWS = (1, 63, 64, 65, 127, 128, 129, 255, 257)
+# This script's readings of the two kernels before their redesign for Hopper
+# (mma.sync SDF MLP, warp-per-point gather), H100 80GB HBM3 at 700 W.
+MS_BEFORE = {"sdf_mlp": 1.824, "sdf_mlp_step": 6.602, "gather_lerp": 0.197}
 GATHER_TPU = "hoisdf_tpu/ops/pallas/gather_lerp.py:89"
 
 
@@ -90,7 +104,10 @@ def _bias_effect(x, weights) -> float:
     return min(effects)
 
 
-def check_sdf_mlp(device, rows_big: int, seed: int = 0):
+def check_sdf_mlp(device, batch: int, seed: int = 0):
+    """Check the SDF MLP at ragged row counts (smallest first, so that a
+    kernel that cannot finish is met at a few rows), then time it in bf16 at
+    the row counts of a serving step."""
     import torch
     import torch.nn.functional as F
 
@@ -100,8 +117,11 @@ def check_sdf_mlp(device, rows_big: int, seed: int = 0):
         fold_weight_norm, prepare_weights, sdf_mlp, sdf_mlp_plain)
 
     g = torch.Generator().manual_seed(seed)
+    step_rows = [batch * r for r in SERVING_ROWS_PER_IMAGE]
+    rows_big = max(step_rows)
     timed = None
-    for latent, n in ((256, rows_big + 37), (64, 2 * 3584 + 37)):
+    for latent in (256, 64):
+        sizes = RAGGED_ROWS + (rows_big + 37 if latent == 256 else 2 * 3584 + 37,)
         dec = init_weights(SDFDecoder(latent, 33), seed)
         # Spread the gains so every layer's output matters, and draw every
         # bias (the init zeroes them), so that a dropped or misread bias shows.
@@ -112,19 +132,28 @@ def check_sdf_mlp(device, rows_big: int, seed: int = 0):
                 if i < 4:
                     lin.weight_g.uniform_(0.5, 1.5, generator=g)
         folded = [w.to(device) for w in fold_weight_norm(dec)]
-        x32 = (torch.randn(n, latent + 33, generator=g) * 0.5).to(device)
+        x32 = (torch.randn(sizes[-1], latent + 33, generator=g) * 0.5).to(device)
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-            x = x32.to(dtype)
             weights = prepare_weights(folded, dtype)
-            got = sdf_mlp(x, weights)
-            torch.cuda.synchronize()
-            want = sdf_mlp_plain(x, weights.plain)
-            err = (got - want).abs().max().item()
+            errs, finite = {}, True
+            for n in sizes:
+                x = x32[:n].to(dtype).contiguous()
+                got = sdf_mlp(x, weights)
+                torch.cuda.synchronize()
+                want = sdf_mlp_plain(x, weights.plain)
+                errs[n] = (got - want).abs().max().item()
+                finite = finite and bool(torch.isfinite(got).all())
+                if not (finite and errs[n] <= tol):
+                    raise AssertionError(
+                        f"sdf_mlp ({latent + 33} wide, {dtype}) disagrees with its plain "
+                        f"version at {n} rows: max abs err {errs[n]}, tol {tol}")
+            err = max(errs.values())
             effect = _bias_effect(x, weights.plain)
-            ok = bool(torch.isfinite(got).all()) and err <= tol < effect
+            ok = finite and err <= tol < effect
             res = {"phase": "kernel", "kernel": "sdf_mlp", "in_dim": latent + 33,
-                   "hidden": folded[0].shape[1], "rows": n, "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "tol": tol, "least_bias_effect": effect, "ok": ok}
+                   "hidden": folded[0].shape[1], "rows": list(sizes), "dtype": str(dtype)[6:],
+                   "max_abs_err": err, "err_by_rows": errs, "tol": tol,
+                   "least_bias_effect": effect, "ok": ok}
             if latent == 256 and dtype == torch.bfloat16:
                 xs = x[:rows_big].contiguous()
                 wb = weights.plain
@@ -137,15 +166,30 @@ def check_sdf_mlp(device, rows_big: int, seed: int = 0):
                     return torch.tanh(F.linear(h, wb[8].t(), wb[9]))
 
                 macs = sum(w.numel() for w in wb[0::2])
-                nbytes = xs.numel() * 2 + rows_big * 4 + sum(w.numel() * 2 for w in wb)
-                b_ms, b_by = bound(2.0 * rows_big * macs, H100_BF16_FLOPS, nbytes)
+                w_bytes = sum(w.numel() * 2 for w in wb)
+
+                def bound_for(rows):
+                    return bound(2.0 * rows * macs, H100_BF16_FLOPS,
+                                 rows * (xs.shape[1] * 2 + 4) + w_bytes)
+
+                b_ms, b_by = bound_for(rows_big)
                 timed = {"ms": time_ms(lambda: sdf_mlp(xs, weights)),
                          "plain_ms": time_ms(lambda: sdf_mlp_plain(xs, wb)),
                          "library_ms": time_ms(library), "bound_ms": b_ms,
                          "bound_by": b_by, "max_abs_err": err, "rows": rows_big,
                          "dtype": "bfloat16"}
-                res.update({k: timed[k] for k in ("ms", "plain_ms", "library_ms",
-                                                  "bound_ms", "bound_by")})
+                # one serving step: the eight launches of the two cascades
+                by_rows = {}
+                for rows in sorted(set(step_rows)):
+                    xr = x[:rows].contiguous()
+                    by_rows[rows] = time_ms(lambda: sdf_mlp(xr, weights))
+                timed["step_rows"] = step_rows
+                timed["ms_by_rows"] = by_rows
+                timed["step_ms"] = sum(by_rows[r] for r in step_rows)
+                timed["step_bound_ms"] = sum(bound_for(r)[0] for r in step_rows)
+                res.update({k: timed[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "step_rows",
+                    "ms_by_rows", "step_ms", "step_bound_ms")})
             emit(res)
             if not ok:
                 raise AssertionError(f"sdf_mlp disagrees with its plain version, or a "
@@ -195,8 +239,12 @@ def check_gather_lerp(device, batch: int, points: int, seed: int = 1):
                          "plain_ms": time_ms(lambda: gather_lerp_plain(grid, maps)),
                          "library_ms": time_ms(library), "bound_ms": b_ms,
                          "bound_by": b_by, "max_abs_err": err, "dtype": "bfloat16"}
-                res.update({k: timed[k] for k in ("ms", "plain_ms", "library_ms",
-                                                  "bound_ms", "bound_by")})
+                # where the time goes: the fine and the coarse levels alone
+                timed["ms_levels_0_2"] = time_ms(lambda: gather_lerp(grid, maps[:3]))
+                timed["ms_levels_3_4"] = time_ms(lambda: gather_lerp(grid, maps[3:]))
+                res.update({k: timed[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "ms_levels_0_2", "ms_levels_3_4")})
             emit(res)
             if not ok:
                 raise AssertionError(f"gather_lerp disagrees with its plain version: {res}")
@@ -434,7 +482,7 @@ def main() -> int:
           "card": torch.cuda.get_device_name(0), "nvidia_smi": smi, "ptxas": regs})
 
     serve_batch = 22
-    sdf_timed = check_sdf_mlp(device, rows_big=serve_batch * 3584)
+    sdf_timed = check_sdf_mlp(device, batch=serve_batch)
     gather_timed = check_gather_lerp(device, batch=serve_batch, points=3584)
 
     compare_forward(get_config("dexycb", compute_dtype="float32"), 2, device)
@@ -449,13 +497,17 @@ def main() -> int:
          "replaces": SDF_TPU, "launches": launches["sdf_mlp"],
          "max_abs_err": sdf_timed["max_abs_err"], "ms": sdf_timed["ms"],
          "plain_ms": sdf_timed["plain_ms"], "bound_ms": sdf_timed["bound_ms"],
-         "bound_by": sdf_timed["bound_by"], "library_ms": sdf_timed["library_ms"]},
+         "bound_by": sdf_timed["bound_by"], "library_ms": sdf_timed["library_ms"],
+         "ms_before": MS_BEFORE["sdf_mlp"], "step_ms": sdf_timed["step_ms"],
+         "step_bound_ms": sdf_timed["step_bound_ms"],
+         "step_ms_before": MS_BEFORE["sdf_mlp_step"]},
         {"name": "gather_lerp", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_TPU,
          "launches": launches["gather_lerp"], "max_abs_err": gather_timed["max_abs_err"],
          "ms": gather_timed["ms"], "plain_ms": gather_timed["plain_ms"],
          "bound_ms": gather_timed["bound_ms"], "bound_by": gather_timed["bound_by"],
-         "library_ms": gather_timed["library_ms"]},
+         "library_ms": gather_timed["library_ms"],
+         "ms_before": MS_BEFORE["gather_lerp"]},
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi, flush=True)

@@ -24,6 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("sdf_mlp.cu", "gather_lerp.cu")
+HEADERS = ("hopper.cuh",)  # included by the sources; part of the stamp
 LIB = os.path.join(BUILD_DIR, "libhoisdf_kernels.so")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,7 +43,7 @@ def nvcc_path() -> str:
 
 def _stamp(nvcc: str) -> str:
     h = hashlib.sha256(" ".join((nvcc,) + FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()
@@ -99,7 +100,7 @@ def library() -> ctypes.CDLL:
             build()
             lib = ctypes.CDLL(LIB)
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.sdf_mlp_launch.argtypes = [vp, i, i, i, vp, vp, vp, vp]
+            lib.sdf_mlp_launch.argtypes = [vp, i, i, i, vp, vp, i, vp, vp]
             lib.sdf_mlp_launch.restype = i
             lib.gather_lerp_launch.argtypes = [vp, i, i, i, vp, vp, i, vp, vp]
             lib.gather_lerp_launch.restype = i

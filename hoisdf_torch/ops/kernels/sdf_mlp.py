@@ -13,6 +13,7 @@ import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from hoisdf_torch.ops.kernels import launch_counts
 from hoisdf_torch.ops.kernels.build import library
@@ -47,33 +48,67 @@ def sdf_mlp_plain(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Ten
     return torch.tanh(h.float() @ w4 + b4)
 
 
+# The bf16 kernel's tiling (csrc/sdf_mlp.cu): a weight stage is STAGE_N
+# output columns x PANEL_K input rows of W^T, K-major in 128-byte rows; a pass
+# holds up to PASS_HALVES stages' columns in its accumulators.
+STAGE_N = 128
+PANEL_K = 64
+PASS_HALVES = 2
+
+
 def _round(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _pack_bf16(w, h):
-    """The tensor-core layout of the four hidden weights: W^T zero-padded to
-    [round128(out), sum of round32(k)], one k-range per input segment (layer
-    2 takes the skip input as a second range)."""
-    ranges = ([w[0]], [w[2]], [w[4][: h[1]], w[4][h[1]:]], [w[6]])
-    packed = []
-    for segs in ranges:
+def swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle on rows of 64 bf16 (``t[..., rows, 64]``): the
+    16-byte chunk ``c`` of row ``r`` moves to chunk ``c ^ (r % 8)``.  Its own
+    inverse."""
+    rows = t.shape[-2]
+    v = t.reshape(*t.shape[:-1], 8, 8)
+    r = torch.arange(rows, device=t.device)[:, None] % 8
+    src = torch.arange(8, device=t.device)[None, :] ^ r  # [rows, 8]
+    return torch.gather(v, -2, src[:, :, None].expand_as(v)).reshape(t.shape)
+
+
+def _pack_bf16(w, h) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The four hidden weights as the run of shared-memory stage images the
+    kernel's producer copies, ``[n_stages, STAGE_N * PANEL_K]`` bf16, and the
+    vectors b0..b3 and w4, each zero-padded to a multiple of STAGE_N, in one
+    run (a padded column then adds a zero bias and a zero output weight).
+
+    Per layer, W^T is zero-padded to ``[halves * 128, sum of round64(k)]``, one
+    k-range per input segment (layer 2 takes the skip input as a second
+    range), and cut into tiles of 128 columns x 64 k.  The stages follow the
+    consumer's walk: layer by layer; per pass of two column halves; per k
+    panel; the pass's halves in turn.  Every tile is stored K-major in the
+    128-byte swizzle, so a bulk copy lands it as a wgmma B operand."""
+    layers = ([w[0]], [w[2]], [w[4][: h[1]], w[4][h[1]:]], [w[6]])
+    stages = []
+    for segs in layers:
         n = segs[0].shape[1]
-        out = torch.zeros(_round(n, 128), sum(_round(s.shape[0], 32) for s in segs),
-                          dtype=torch.bfloat16, device=w[0].device)
+        halves = -(-n // STAGE_N)
+        wt = torch.zeros(halves * STAGE_N, sum(_round(s.shape[0], PANEL_K) for s in segs),
+                         dtype=torch.bfloat16, device=w[0].device)
         off = 0
         for s in segs:
-            out[:n, off:off + s.shape[0]] = s.t()
-            off += _round(s.shape[0], 32)
-        packed.append(out)
-    return tuple(packed)
+            wt[:n, off:off + s.shape[0]] = s.t()
+            off += _round(s.shape[0], PANEL_K)
+        tiles = wt.reshape(halves, STAGE_N, off // PANEL_K, PANEL_K).permute(0, 2, 1, 3)
+        for h0 in range(0, halves, PASS_HALVES):  # [halves in pass, k panels, 128, 64]
+            stages.append(tiles[h0:h0 + PASS_HALVES].transpose(0, 1)
+                          .reshape(-1, STAGE_N, PANEL_K))
+    vectors = torch.cat([F.pad(v.reshape(-1), (0, -v.numel() % STAGE_N))
+                         for v in (w[1], w[3], w[5], w[7], w[8])])
+    return (swizzle128(torch.cat(stages)).reshape(-1, STAGE_N * PANEL_K).contiguous(),
+            vectors.contiguous())
 
 
 class MlpWeights(NamedTuple):
     """The weights as :func:`sdf_mlp` takes them (:func:`prepare_weights`)."""
 
     plain: Tuple[torch.Tensor, ...]  # the ten of fold_weight_norm, in one dtype
-    packed: Optional[Tuple[torch.Tensor, ...]]  # bf16: w0..w3 in the kernel's layout
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]]  # bf16: weight stages, vectors
 
     @property
     def in_dim(self) -> int:
@@ -83,7 +118,7 @@ class MlpWeights(NamedTuple):
 def prepare_weights(weights: Sequence[torch.Tensor], dtype: torch.dtype) -> MlpWeights:
     """Cast the ten tensors of :func:`fold_weight_norm` to ``dtype`` (f32 or
     bf16), check that their shapes chain, and for bf16 pack the four hidden
-    weights for the tensor cores (:func:`_pack_bf16`)."""
+    weights into the kernel's weight stages (:func:`_pack_bf16`)."""
     if dtype not in _DTYPES:
         raise TypeError(f"sdf_mlp: dtype {dtype} not in {list(_DTYPES)}")
     if len(weights) != 10:
@@ -125,15 +160,17 @@ def sdf_mlp(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
     out = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
+    n_stages = 0
     if x.dtype == torch.bfloat16:
-        w[0], w[2], w[4], w[6] = weights.packed
+        w[0], w[1] = weights.packed
+        n_stages = w[0].shape[0]
     lib = library()
     ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in w])
     dims = (ctypes.c_int * 4)(*h)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.sdf_mlp_launch(x.data_ptr(), _DTYPES[x.dtype], n, in_dim, ptrs,
-                                dims, out.data_ptr(), stream)
+                                dims, n_stages, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"sdf_mlp kernel launch failed with CUDA error {rc}")
     launch_counts["sdf_mlp"] += 1

@@ -97,9 +97,12 @@ def test_projection_and_grid_match_jax():
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA card")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_on_card(dtype):
-    maps = [torch.from_numpy(m).to("cuda", dtype) for m in _maps(2, LEVELS5).values()]
-    grid = torch.from_numpy(_grid(2, 333)).cuda()
+@pytest.mark.parametrize("batch,points", [(2, 333), (1, 5), (3, 4000)])
+def test_kernel_matches_plain_on_card(dtype, batch, points):
+    """Few points a block: the coarsest maps alone are staged in shared
+    memory; many: every level that fits.  Bit-identical either way."""
+    maps = [torch.from_numpy(m).to("cuda", dtype) for m in _maps(batch, LEVELS5).values()]
+    grid = torch.from_numpy(_grid(batch, points)).cuda()
     got = gather_lerp(grid, maps)
     torch.cuda.synchronize()
     assert torch.equal(got, gather_lerp_plain(grid, maps))
