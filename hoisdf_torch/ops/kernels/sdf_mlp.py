@@ -10,10 +10,10 @@ kernel's weight layout are made outside the kernel, once per forward
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from hoisdf_torch.ops.kernels import launch_counts
 from hoisdf_torch.ops.kernels.build import library
@@ -71,37 +71,59 @@ def swizzle128(t: torch.Tensor) -> torch.Tensor:
     return torch.gather(v, -2, src[:, :, None].expand_as(v)).reshape(t.shape)
 
 
-def _pack_bf16(w, h) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The four hidden weights as the run of shared-memory stage images the
-    kernel's producer copies, ``[n_stages, STAGE_N * PANEL_K]`` bf16, and the
-    vectors b0..b3 and w4, each zero-padded to a multiple of STAGE_N, in one
-    run (a padded column then adds a zero bias and a zero output weight).
+def _layer_ranges(in_dim: int, h: Sequence[int]):
+    """(width, k-ranges) of the four hidden layers; layer 2 takes [h1 | x]."""
+    return ((h[0], (in_dim,)), (h[1], (h[0],)), (h[2], (h[1], in_dim)), (h[3], (h[2],)))
 
-    Per layer, W^T is zero-padded to ``[halves * 128, sum of round64(k)]``, one
-    k-range per input segment (layer 2 takes the skip input as a second
-    range), and cut into tiles of 128 columns x 64 k.  The stages follow the
-    consumer's walk: layer by layer; per pass of two column halves; per k
-    panel; the pass's halves in turn.  Every tile is stored K-major in the
-    128-byte swizzle, so a bulk copy lands it as a wgmma B operand."""
-    layers = ([w[0]], [w[2]], [w[4][: h[1]], w[4][h[1]:]], [w[6]])
-    stages = []
-    for segs in layers:
-        n = segs[0].shape[1]
-        halves = -(-n // STAGE_N)
-        wt = torch.zeros(halves * STAGE_N, sum(_round(s.shape[0], PANEL_K) for s in segs),
-                         dtype=torch.bfloat16, device=w[0].device)
-        off = 0
-        for s in segs:
-            wt[:n, off:off + s.shape[0]] = s.t()
-            off += _round(s.shape[0], PANEL_K)
-        tiles = wt.reshape(halves, STAGE_N, off // PANEL_K, PANEL_K).permute(0, 2, 1, 3)
+
+@functools.lru_cache(maxsize=8)
+def _stage_index(in_dim: int, h: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """Where each element of the run of weight stages comes from in the four
+    zero-padded W^T laid end to end (one gather then packs a forward's
+    weights).  Per layer, W^T ``[halves * 128, sum of round64(k)]`` is cut into
+    tiles of 128 columns x 64 k.  The stages follow the consumer's walk: layer
+    by layer; per pass of two column halves; per k panel; the pass's halves
+    in turn.  Every tile is stored K-major in the 128-byte swizzle, so a bulk
+    copy lands it as a wgmma B operand."""
+    stages, base = [], 0
+    for n, ks in _layer_ranges(in_dim, h):
+        halves, panels = -(-n // STAGE_N), sum(-(-k // PANEL_K) for k in ks)
+        size = halves * STAGE_N * panels * PANEL_K
+        tiles = torch.arange(base, base + size, device=device).reshape(
+            halves, STAGE_N, panels, PANEL_K).permute(0, 2, 1, 3)
         for h0 in range(0, halves, PASS_HALVES):  # [halves in pass, k panels, 128, 64]
             stages.append(tiles[h0:h0 + PASS_HALVES].transpose(0, 1)
                           .reshape(-1, STAGE_N, PANEL_K))
-    vectors = torch.cat([F.pad(v.reshape(-1), (0, -v.numel() % STAGE_N))
-                         for v in (w[1], w[3], w[5], w[7], w[8])])
-    return (swizzle128(torch.cat(stages)).reshape(-1, STAGE_N * PANEL_K).contiguous(),
-            vectors.contiguous())
+        base += size
+    return swizzle128(torch.cat(stages)).reshape(-1)
+
+
+def _pack_bf16(w, h) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The four hidden weights as the run of shared-memory stage images the
+    kernel's producer copies, ``[n_stages, STAGE_N * PANEL_K]`` bf16
+    (:func:`_stage_index`), and the vectors b0..b3 and w4, each zero-padded to
+    a multiple of STAGE_N, in one run (a padded column then adds a zero bias
+    and a zero output weight).  Each k-range of a layer starts at a multiple
+    of PANEL_K in its W^T; rows past the layer's width and columns between
+    ranges are zero."""
+    in_dim, dev = w[0].shape[0], w[0].device
+    padded = []
+    for (n, ks), wl in zip(_layer_ranges(in_dim, h), (w[0], w[2], w[4], w[6])):
+        wt = torch.zeros(_round(n, STAGE_N), sum(_round(k, PANEL_K) for k in ks),
+                         dtype=torch.bfloat16, device=dev)
+        row = off = 0
+        for k in ks:
+            wt[:n, off:off + k] = wl[row:row + k].t()
+            row, off = row + k, off + _round(k, PANEL_K)
+        padded.append(wt.reshape(-1))
+    stages = torch.cat(padded)[_stage_index(in_dim, tuple(h), dev)]
+    vectors = torch.zeros(sum(_round(n, STAGE_N) for n in (*h, h[3])),
+                          dtype=torch.bfloat16, device=dev)
+    off = 0
+    for v in (w[1], w[3], w[5], w[7], w[8]):
+        vectors[off:off + v.numel()] = v.reshape(-1)
+        off += _round(v.numel(), STAGE_N)
+    return stages.reshape(-1, STAGE_N * PANEL_K), vectors
 
 
 class MlpWeights(NamedTuple):
