@@ -147,6 +147,15 @@ def check_sdf_mlp(device, batch: int, seed: int = 0):
                     raise AssertionError(
                         f"sdf_mlp ({latent + 33} wide, {dtype}) disagrees with its plain "
                         f"version at {n} rows: max abs err {errs[n]}, tol {tol}")
+            # a view that starts one row in: rows of odd width then sit on
+            # 2-byte, not 16-byte, addresses, and the kernel loads them singly
+            x_off = x[1:130]
+            got = sdf_mlp(x_off, weights)
+            torch.cuda.synchronize()
+            errs["129 from row 1"] = (got - sdf_mlp_plain(x_off, weights.plain)).abs().max().item()
+            if not errs["129 from row 1"] <= tol:
+                raise AssertionError(f"sdf_mlp ({latent + 33} wide, {dtype}) disagrees with its "
+                                     f"plain version on an unaligned view: {errs}")
             err = max(errs.values())
             effect = _bias_effect(x, weights.plain)
             ok = finite and err <= tol < effect

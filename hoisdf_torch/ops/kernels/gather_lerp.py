@@ -68,6 +68,8 @@ def gather_lerp(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> torch.Tens
         raise ValueError(f"gather_lerp: grid must be contiguous f32 [B,P,2], got "
                          f"{grid.dtype} {tuple(grid.shape)}")
     b, p, _ = grid.shape
+    if b > 65535:  # images ride the launch grid's y axis
+        raise ValueError(f"gather_lerp: batch {b} exceeds 65535")
     dtype = feats[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"gather_lerp: map dtype {dtype} not in {list(_DTYPES)}")

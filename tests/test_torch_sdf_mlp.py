@@ -261,3 +261,8 @@ def test_kernel_matches_plain_on_card(decoders, dtype, atol):
         want = sdf_mlp_plain(xc, weights.plain)
         assert got.shape == (n, 1)
         assert (got - want).abs().max().item() <= atol, n
+    # a view that starts one row in: odd-width rows off the 16-byte boundary
+    xc = x.to("cuda", dtype)[1:130]
+    got = sdf_mlp(xc, weights)
+    torch.cuda.synchronize()
+    assert (got - sdf_mlp_plain(xc, weights.plain)).abs().max().item() <= atol
