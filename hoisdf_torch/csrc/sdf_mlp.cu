@@ -29,7 +29,7 @@
 //     columns x 64 k of W^T, swizzled, 16 KB, in the order the consumer
 //     walks them.  The producer brings a stage with one cp.async.bulk that
 //     completes on the stage's "full" mbarrier; the consumer waits on it,
-//     issues the stage's four wgmma, and releases the stage on its "empty"
+//     starts the stage's four wgmma, and releases the stage on its "empty"
 //     mbarrier once the wgmma group before it has retired.  There is no block
 //     barrier in the main loop, only one warpgroup barrier per layer.
 //   - A block of 64 rows still reads every weight from L2 once.  Sharing a
@@ -233,7 +233,7 @@ __device__ __forceinline__ void release_stage(const Ring& ring, int stage) {
 // The next stage of the ring against one activation panel: four k-steps of
 // 16 (the padded k of a last panel multiplies zeros).  The code between the
 // wgmma of a pass is straight-line and touches no accumulator, so the tensor
-// cores run one group behind the issue without being serialized.
+// cores run one group behind the warps without being serialized.
 __device__ __forceinline__ void mma_stage(Ring& ring, float (&acc)[64], uint64_t a_desc,
                                           int accumulate) {
   mbar_wait(ring.full + 8 * ring.stage, ring.parity);
