@@ -22,9 +22,7 @@ Phases, each printing one JSON line:
              40 requests on each of the u8 and the f32 wire, in turn; p50
              and p90 latency, frames/s, peak memory, kernel launches per step
              (from the wrappers' counters, zeroed just before the requests).
-5. kernels - one line listing both kernels with their numbers; ms_before
-             is this script's reading of the kernel as it was before its
-             redesign for Hopper (same card type, same shapes).
+5. kernels - one line listing both kernels with the numbers this run took.
 
 Any failed check raises, and the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no result.
@@ -48,9 +46,6 @@ SDF_TPU = "hoisdf_tpu/ops/pallas/sdf_mlp.py:63"
 # once for each, on batch x rows.
 SERVING_ROWS_PER_IMAGE = (512, 1024, 1792, 3584, 512, 832, 1472, 2944)
 RAGGED_ROWS = (1, 63, 64, 65, 127, 128, 129, 255, 257)
-# This script's readings of the two kernels before their redesign for Hopper
-# (mma.sync SDF MLP, warp-per-point gather), H100 80GB HBM3 at 700 W.
-MS_BEFORE = {"sdf_mlp": 1.824, "sdf_mlp_step": 6.602, "gather_lerp": 0.197}
 GATHER_TPU = "hoisdf_tpu/ops/pallas/gather_lerp.py:89"
 
 
@@ -507,16 +502,13 @@ def main() -> int:
          "max_abs_err": sdf_timed["max_abs_err"], "ms": sdf_timed["ms"],
          "plain_ms": sdf_timed["plain_ms"], "bound_ms": sdf_timed["bound_ms"],
          "bound_by": sdf_timed["bound_by"], "library_ms": sdf_timed["library_ms"],
-         "ms_before": MS_BEFORE["sdf_mlp"], "step_ms": sdf_timed["step_ms"],
-         "step_bound_ms": sdf_timed["step_bound_ms"],
-         "step_ms_before": MS_BEFORE["sdf_mlp_step"]},
+         "step_ms": sdf_timed["step_ms"], "step_bound_ms": sdf_timed["step_bound_ms"]},
         {"name": "gather_lerp", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_TPU,
          "launches": launches["gather_lerp"], "max_abs_err": gather_timed["max_abs_err"],
          "ms": gather_timed["ms"], "plain_ms": gather_timed["plain_ms"],
          "bound_ms": gather_timed["bound_ms"], "bound_by": gather_timed["bound_by"],
-         "library_ms": gather_timed["library_ms"],
-         "ms_before": MS_BEFORE["gather_lerp"]},
+         "library_ms": gather_timed["library_ms"]},
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi, flush=True)

@@ -160,20 +160,32 @@ gather_lerp_kernel(const float* __restrict__ grid, int p, int ppb, const Levels 
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 1;
+// SMs of the current device.  The attribute query costs tens of microseconds,
+// as much as a small launch, so the answer is kept, per device.
+cudaError_t sm_count(int* sms) {
+  constexpr int kMaxDevices = 64;
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices)
+    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cached[dev] == 0) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached[dev] = n;
   }
-  return sms;
+  *sms = cached[dev];
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch(const float* grid, int b, int p, Levels L, void* out, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
   bool vec_ok = reinterpret_cast<uintptr_t>(out) % 16 == 0;
   for (int l = 0; l < L.n; ++l)
     vec_ok = vec_ok && L.lv[l].c % kVec == 0 &&
@@ -189,7 +201,8 @@ cudaError_t launch(const float* grid, int b, int p, Levels L, void* out, cudaStr
   // One wave of blocks: each image's points over just enough blocks to give
   // every SM one.  Coarsest level first, a map is staged when it fits and the
   // block's points would otherwise read more than the map (4 corners each).
-  int ppb = (p + (sm_count() + b - 1) / b - 1) / ((sm_count() + b - 1) / b);
+  const int blocks_per_image = (sms + b - 1) / b;
+  int ppb = (p + blocks_per_image - 1) / blocks_per_image;
   size_t smem = 0;
   for (int l = L.n - 1; l >= 0; --l) {
     const size_t bytes = (size_t)L.lv[l].h * L.lv[l].w * L.lv[l].c * sizeof(T);
@@ -202,7 +215,6 @@ cudaError_t launch(const float* grid, int b, int p, Levels L, void* out, cudaStr
   if (smem == 0) ppb = min(ppb, 2 * kWarps);  // nothing to share: smaller blocks balance better
   const dim3 blocks((p + ppb - 1) / ppb, b);
   T* o = static_cast<T*>(out);
-  cudaError_t err;
   if (vec_ok) {
     auto kern = gather_lerp_kernel<T, kVec>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxStaged);

@@ -2,91 +2,68 @@
 
     python3 scripts/probe_torch_kernels.py        (from the repository root)
 
-Quicker than chip_smoke.py's whole run when only a kernel changed: builds
-the kernels, prints ptxas's register counts and warnings, checks the SDF MLP
-(bf16, both widths) against its plain version at ragged row counts and the
-gather at small shapes, then times the SDF MLP by tiles in flight and by the
-row counts of a serving step, and the gather by points per image.  One JSON
-line per result; exits non-zero on a mismatch.
+For work on a kernel: builds the kernels and prints ptxas's register counts
+and warnings, runs chip_smoke.py's kernel phase (each kernel against its plain
+version, the SDF MLP at ragged row counts and at the row counts of a serving
+step), then two sweeps that chip_smoke.py does not make: the SDF MLP by tiles
+in flight and the gather by points per image.  One JSON line per result; exits
+non-zero on a mismatch.
 """
 
-import json
 import os
 import re
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from hoisdf_torch.models.hoisdf import init_weights  # noqa: E402
 from hoisdf_torch.models.sdf_decoder import SDFDecoder  # noqa: E402
 from hoisdf_torch.ops.kernels import build  # noqa: E402
-from hoisdf_torch.ops.kernels import sdf_mlp as m  # noqa: E402
-from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp, gather_lerp_plain  # noqa: E402
+from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp  # noqa: E402
+from hoisdf_torch.ops.kernels.sdf_mlp import fold_weight_norm, prepare_weights, sdf_mlp  # noqa: E402
 
 
-def emit(obj):
-    print(json.dumps(obj), flush=True)
+def sweep_sdf_mlp_tiles(dev):
+    """Time against tiles of 64 rows in flight: flat up to one tile per SM
+    means a tile's own latency, not L2's rate, sets the time."""
+    dec = init_weights(SDFDecoder(256, 33), 0)
+    weights = prepare_weights([w.to(dev) for w in fold_weight_norm(dec)], torch.bfloat16)
+    x = (torch.randn(64 * 1232, 289, generator=torch.Generator().manual_seed(0)) * 0.5)
+    x = x.to(dev).bfloat16()
+    us = {}
+    for tiles in (2, 8, 33, 66, 132, 264, 528, 1232):
+        xr = x[:64 * tiles]
+        us[tiles] = cs.time_ms(lambda: sdf_mlp(xr, weights), iters=20) * 1e3
+    cs.emit({"kernel": "sdf_mlp", "us_by_tiles_of_64_rows": us})
 
 
-def probe_sdf_mlp(dev, batch=22):
-    g = torch.Generator().manual_seed(0)
-    for latent in (256, 64):
-        dec = init_weights(SDFDecoder(latent, 33), 0)
-        with torch.no_grad():
-            for i in range(5):
-                getattr(dec, f"linh{i}").bias.uniform_(-0.5, 0.5, generator=g)
-        weights = m.prepare_weights([w.to(dev) for w in m.fold_weight_norm(dec)],
-                                    torch.bfloat16)
-        x = (torch.randn(batch * 3584 + 37, latent + 33, generator=g) * 0.5).to(dev).bfloat16()
-        errs = {}
-        for n in (64,) + cs.RAGGED_ROWS + (1000, x.shape[0]):
-            xr = x[:n].contiguous()
-            got = m.sdf_mlp(xr, weights)
-            torch.cuda.synchronize()
-            errs[n] = (got - m.sdf_mlp_plain(xr, weights.plain)).abs().max().item()
-        emit({"kernel": "sdf_mlp", "in_dim": latent + 33, "max_abs_err_by_rows": errs})
-        if max(errs.values()) > 2e-2:
-            raise AssertionError("sdf_mlp disagrees with its plain version")
-        if latent != 256:
-            continue
-
-        def timed(rows):
-            xr = x[:rows].contiguous()
-            return cs.time_ms(lambda: m.sdf_mlp(xr, weights), iters=20)
-
-        emit({"kernel": "sdf_mlp", "us_by_tiles_of_64_rows":
-              {t: timed(64 * t) * 1e3 for t in (2, 8, 33, 66, 132, 264, 528, 1232)}})
-        by_rows = {batch * r: timed(batch * r) for r in sorted(set(cs.SERVING_ROWS_PER_IMAGE))}
-        emit({"kernel": "sdf_mlp", "ms_by_rows": by_rows,
-              "step_ms": sum(by_rows[batch * r] for r in cs.SERVING_ROWS_PER_IMAGE)})
+def host_ms(fn, iters=20):
+    """Host time of one call of ``fn``, the queue drained before and not after:
+    where it is no less than the device time of a back-to-back loop, that loop
+    timed the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
 
 
-def probe_gather(dev, batch=22):
-    rng = np.random.RandomState(0)
-    tiny = ((32, 32, 8), (16, 16, 16), (8, 8, 24), (4, 4, 32), (2, 2, 40))
-    odd = ((16, 16, 6), (8, 8, 10), (3, 5, 7))  # channel counts that take the scalar path
-    for dims in (tiny, odd):
-        for b, p in ((2, 333), (1, 5), (3, 4000)):
-            maps32 = [torch.from_numpy(rng.randn(b, *d).astype(np.float32)).to(dev) for d in dims]
-            grid = torch.from_numpy((rng.rand(b, p, 2) * 2.2 - 1.1).astype(np.float32)).to(dev)
-            for dt in (torch.float32, torch.bfloat16):
-                maps = [t.to(dt) for t in maps32]
-                got = gather_lerp(grid, maps)
-                torch.cuda.synchronize()
-                if not torch.equal(got, gather_lerp_plain(grid, maps)):
-                    raise AssertionError(f"gather_lerp differs: {dims[0]} {b} {p} {dt}")
-    emit({"kernel": "gather_lerp", "small_shapes_bitwise_equal": True})
+def sweep_gather_points(dev, batch=22):
     g = torch.Generator().manual_seed(1)
     maps = [torch.randn(batch, s, s, c, generator=g).to(dev).bfloat16() for _, s, c in cs.PYRAMID]
-    ms = {}
+    ms, host = {}, {}
     for pts in (512, 832, 1024, 1472, 1792, 2944, 3584):
         grid = (torch.rand(batch, pts, 2, generator=g) * 2.2 - 1.1).to(dev)
         ms[pts] = cs.time_ms(lambda: gather_lerp(grid, maps), iters=20)
-    emit({"kernel": "gather_lerp", "batch": batch, "ms_by_points_per_image": ms})
+        host[pts] = host_ms(lambda: gather_lerp(grid, maps))
+    cs.emit({"kernel": "gather_lerp", "batch": batch, "ms_by_points_per_image": ms,
+             "host_ms_per_call": host})
 
 
 def main():
@@ -99,10 +76,12 @@ def main():
                     for ln in info["log"].splitlines()
                     if "registers" in ln or "spill" in ln or "arning" in ln
                     or ("(C75" in ln and "C7519" not in ln)})
-    emit({"build_seconds": info["seconds"], "ptxas": notes})
+    cs.emit({"build_seconds": info["seconds"], "ptxas": notes})
     dev = torch.device("cuda", 0)
-    probe_sdf_mlp(dev)
-    probe_gather(dev)
+    cs.check_sdf_mlp(dev, batch=22)
+    cs.check_gather_lerp(dev, batch=22, points=3584)
+    sweep_sdf_mlp_tiles(dev)
+    sweep_gather_points(dev)
     return 0
 
 

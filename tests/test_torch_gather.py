@@ -27,6 +27,7 @@ ATOL_F32 = 1e-5
 ATOL_BF16 = 1e-2
 LEVELS5 = {"stride2": (32, 32, 8), "stride4": (16, 16, 16), "stride8": (8, 8, 24),
            "stride16": (4, 4, 32), "stride32": (2, 2, 40)}
+LEVELS_ODD = {"a": (16, 16, 6), "b": (8, 8, 10), "c": (3, 5, 7)}  # no 16-byte vectors
 
 
 def _maps(b, dims, seed=0):
@@ -98,10 +99,12 @@ def test_projection_and_grid_match_jax():
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA card")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,points", [(2, 333), (1, 5), (3, 4000)])
-def test_kernel_matches_plain_on_card(dtype, batch, points):
+@pytest.mark.parametrize("levels", [LEVELS5, LEVELS_ODD], ids=["vector", "scalar"])
+def test_kernel_matches_plain_on_card(levels, dtype, batch, points):
     """Few points a block: the coarsest maps alone are staged in shared
-    memory; many: every level that fits.  Bit-identical either way."""
-    maps = [torch.from_numpy(m).to("cuda", dtype) for m in _maps(batch, LEVELS5).values()]
+    memory; many: every level that fits.  Channel counts that are no multiple
+    of a 16-byte vector take the scalar path.  Bit-identical in every case."""
+    maps = [torch.from_numpy(m).to("cuda", dtype) for m in _maps(batch, levels).values()]
     grid = torch.from_numpy(_grid(batch, points)).cuda()
     got = gather_lerp(grid, maps)
     torch.cuda.synchronize()
