@@ -35,7 +35,9 @@
 //   - A block of 64 rows still reads every weight from L2 once.  Sharing a
 //     stage between the two blocks of a cluster (multicast, each fetching
 //     half) measured slower than independent blocks on this card, because the
-//     blocks then advance in lockstep; it is not used.
+//     blocks then advance in lockstep; it is not used.  Two consumer
+//     warpgroups in one block would share a stage too, but 128 rows of
+//     resident panels (2 x 136 KB) are more than an SM's shared memory.
 //   - The epilogue adds the bias, applies ReLU, rounds to bf16 and writes the
 //     next layer's A operand straight into its swizzled panels.  The skip
 //     concat is a second k-range of layer 2 that reads the resident input
