@@ -14,7 +14,11 @@ Phases, each printing one JSON line:
              row counts of a serving step (their sum is step_ms).  Its biases
              are drawn, and each must move the output by more than the
              tolerance.  The gather is also timed on its fine levels (0-2)
-             and its coarse levels (3-4) alone.
+             and its coarse levels (3-4) alone.  The SDF MLP is also timed in
+             f32 at the same eight row counts (the field-guided train step's
+             launches).  The gather's backward is checked at the train step's
+             largest launch, f32 and bf16 maps, on a uniform, a clustered
+             and a border grid.
 3. forward - the full-width dexycb eval forward, batch 2, f32 with TF32 off:
              card (through the kernels) against CPU (plain versions), with
              drawn SDF decoder biases.
@@ -22,7 +26,16 @@ Phases, each printing one JSON line:
              40 requests on each of the u8 and the f32 wire, in turn; p50
              and p90 latency, frames/s, peak memory, kernel launches per step
              (from the wrappers' counters, zeroed just before the requests).
-5. kernels - one line listing both kernels with the numbers this run took.
+5. train   - the dexycb preset at full width (f32, batch 22) trains through
+             the port's make_train_step: presampled and field-guided steps
+             (branches forced through presample_gate), median ms per step,
+             peak memory, per-step launches of each kernel (counts zeroed
+             just before each branch's timed steps), finite losses, and a
+             torch.profiler breakdown of one field-guided step.
+6. train_check - one presampled train step on the card against the CPU at
+             full width, batch 2, f32, TF32 off, dropout off, no jitter:
+             every loss and the gradient norm of every parameter group.
+7. kernels - one line listing every kernel with the numbers this run took.
 
 Any failed check raises, and the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no result.
@@ -47,6 +60,7 @@ SDF_TPU = "hoisdf_tpu/ops/pallas/sdf_mlp.py:63"
 SERVING_ROWS_PER_IMAGE = (512, 1024, 1792, 3584, 512, 832, 1472, 2944)
 RAGGED_ROWS = (1, 63, 64, 65, 127, 128, 129, 255, 257)
 GATHER_TPU = "hoisdf_tpu/ops/pallas/gather_lerp.py:89"
+GATHER_BWD_TPU = "hoisdf_tpu/ops/grid_sample.py:239"  # _gsb_fast_bwd (a custom VJP)
 
 
 def emit(obj) -> None:
@@ -158,42 +172,48 @@ def check_sdf_mlp(device, batch: int, seed: int = 0):
                    "hidden": folded[0].shape[1], "rows": list(sizes), "dtype": str(dtype)[6:],
                    "max_abs_err": err, "err_by_rows": errs, "tol": tol,
                    "least_bias_effect": effect, "ok": ok}
-            if latent == 256 and dtype == torch.bfloat16:
-                xs = x[:rows_big].contiguous()
+            if latent == 256:
                 wb = weights.plain
+                size = 2 if dtype == torch.bfloat16 else 4
+                rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+                macs = sum(w.numel() for w in wb[0::2])
+                w_bytes = sum(w.numel() * size for w in wb)
 
-                def library():  # the stock bf16 matmul chain (cuBLAS)
+                def library(xs):  # the stock matmul chain (cuBLAS; TF32 off in f32)
                     h = F.relu(F.linear(xs, wb[0].t(), wb[1]))
                     h = F.relu(F.linear(h, wb[2].t(), wb[3]))
                     h = F.relu(F.linear(torch.cat([h, xs], -1), wb[4].t(), wb[5]))
                     h = F.relu(F.linear(h, wb[6].t(), wb[7]))
                     return torch.tanh(F.linear(h, wb[8].t(), wb[9]))
 
-                macs = sum(w.numel() for w in wb[0::2])
-                w_bytes = sum(w.numel() * 2 for w in wb)
-
                 def bound_for(rows):
-                    return bound(2.0 * rows * macs, H100_BF16_FLOPS,
-                                 rows * (xs.shape[1] * 2 + 4) + w_bytes)
+                    return bound(2.0 * rows * macs, rate,
+                                 rows * (x.shape[1] * size + 4) + w_bytes)
 
-                b_ms, b_by = bound_for(rows_big)
-                timed = {"ms": time_ms(lambda: sdf_mlp(xs, weights)),
-                         "plain_ms": time_ms(lambda: sdf_mlp_plain(xs, wb)),
-                         "library_ms": time_ms(library), "bound_ms": b_ms,
-                         "bound_by": b_by, "max_abs_err": err, "rows": rows_big,
-                         "dtype": "bfloat16"}
-                # one serving step: the eight launches of the two cascades
-                by_rows = {}
+                # one step: the eight launches of the two cascades (serving in
+                # bf16, the field-guided train step in f32)
+                by_rows, lib_by_rows, plain_by_rows = {}, {}, {}
                 for rows in sorted(set(step_rows)):
                     xr = x[:rows].contiguous()
                     by_rows[rows] = time_ms(lambda: sdf_mlp(xr, weights))
-                timed["step_rows"] = step_rows
-                timed["ms_by_rows"] = by_rows
-                timed["step_ms"] = sum(by_rows[r] for r in step_rows)
-                timed["step_bound_ms"] = sum(bound_for(r)[0] for r in step_rows)
-                res.update({k: timed[k] for k in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "step_rows",
-                    "ms_by_rows", "step_ms", "step_bound_ms")})
+                    lib_by_rows[rows] = time_ms(lambda: library(xr))
+                    plain_by_rows[rows] = time_ms(lambda: sdf_mlp_plain(xr, wb), iters=3)
+                step = {"step_rows": step_rows, "ms_by_rows": by_rows,
+                        "step_ms": sum(by_rows[r] for r in step_rows),
+                        "step_bound_ms": sum(bound_for(r)[0] for r in step_rows),
+                        "step_library_ms": sum(lib_by_rows[r] for r in step_rows),
+                        "step_plain_ms": sum(plain_by_rows[r] for r in step_rows)}
+                if dtype == torch.float32:
+                    f32_step = {"f32_" + k: v for k, v in step.items() if k != "step_rows"}
+                    res.update(f32_step)
+                else:
+                    b_ms, b_by = bound_for(rows_big)
+                    timed = {"ms": by_rows[rows_big], "plain_ms": plain_by_rows[rows_big],
+                             "library_ms": lib_by_rows[rows_big], "bound_ms": b_ms,
+                             "bound_by": b_by, "max_abs_err": err, "rows": rows_big,
+                             "dtype": "bfloat16", **step, **f32_step}
+                    res.update({k: timed[k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", *step)})
             emit(res)
             if not ok:
                 raise AssertionError(f"sdf_mlp disagrees with its plain version, or a "
@@ -253,6 +273,100 @@ def check_gather_lerp(device, batch: int, points: int, seed: int = 1):
             if not ok:
                 raise AssertionError(f"gather_lerp disagrees with its plain version: {res}")
     return timed
+
+
+def _bwd_grid(kind: str, batch: int, points: int, g):
+    """A uniform grid over the image and a little beyond; points packed into
+    four small cells per image, as the cascade's selections are; or points
+    on the corners, edges and beyond the border."""
+    import torch
+
+    if kind == "uniform":
+        return torch.rand(batch, points, 2, generator=g) * 2.2 - 1.1
+    if kind == "clustered":
+        centres = torch.rand(batch, 4, 2, generator=g) * 1.6 - 0.8
+        pick = torch.randint(0, 4, (batch, points), generator=g)
+        return (torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2))
+                + torch.randn(batch, points, 2, generator=g) * 0.02)
+    edge = torch.tensor([-1.0, 1.0])[torch.randint(0, 2, (batch, points, 2), generator=g)]
+    free = torch.rand(batch, points, 2, generator=g) * 2.4 - 1.2
+    axis = torch.randint(0, 2, (batch, points, 1), generator=g).bool()
+    return torch.where(axis, torch.stack([edge[..., 0], free[..., 1]], -1),
+                       torch.stack([free[..., 0], edge[..., 1]], -1))
+
+
+def check_gather_lerp_bwd(device, batch: int, points: int, seed: int = 2):
+    """The gather's backward kernel against its plain version (the 4-corner
+    index_add_) at the train step's largest launch, f32 and bf16 maps, on a
+    uniform, a clustered and a border grid.  The kernel adds with f32 atomics
+    in no fixed order: f32 results must agree within 1e-5 of the largest
+    |d/dfeat| (or 1e-5 absolute below 1), bf16 results within one bf16
+    rounding (2^-8 relative)."""
+    import torch
+    import torch.nn.functional as F
+
+    from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp_bwd, gather_lerp_bwd_plain
+
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(s, s, c) for _, s, c in PYRAMID]
+    c_total = sum(c for _, _, c in shapes)
+    grad32 = torch.randn(batch, points, c_total, generator=g).to(device)
+    timed, errs = {}, {}
+    for kind in ("uniform", "clustered", "border"):
+        grid = _bwd_grid(kind, batch, points, g).to(device).contiguous()
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -8)):
+            grad = grad32.to(dtype)
+            got = gather_lerp_bwd(grid, grad, shapes, dtype)
+            torch.cuda.synchronize()
+            want = gather_lerp_bwd_plain(grid, grad, shapes, dtype)
+            abs_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+            err = max((a.float() - w.float()).abs().max().item()
+                      / max(w.float().abs().max().item(), 1.0) for a, w in zip(got, want))
+            ok = all(bool(torch.isfinite(a).all()) for a in got) and err <= tol
+            errs[f"{kind}/{str(dtype)[6:]}"] = abs_err
+            res = {"phase": "kernel", "kernel": "gather_lerp_bwd", "grid": kind,
+                   "batch": batch, "points": points, "channels": c_total,
+                   "dtype": str(dtype)[6:], "max_abs_err": abs_err, "max_scaled_err": err,
+                   "tol_scaled": tol, "ok": ok}
+            if kind != "border" and dtype == torch.float32:
+                size = 4
+                maps = [torch.zeros(batch, h, w, c, device=device, requires_grad=True)
+                        for h, w, c in shapes]
+                out = torch.cat([F.grid_sample(
+                    m.permute(0, 3, 1, 2), grid[:, None], mode="bilinear",
+                    padding_mode="border", align_corners=True)[:, :, 0] for m in maps], 1)
+                grad_nchw = grad.permute(0, 2, 1).contiguous()
+
+                def library():  # grid_sample's backward x5 through autograd
+                    return torch.autograd.grad(out, maps, grad_nchw, retain_graph=True)
+
+                c_fine = sum(c for _, _, c in shapes[:3])
+                grad_fine = grad[..., :c_fine].contiguous()
+                grad_coarse = grad[..., c_fine:].contiguous()
+                acc_bytes = sum(batch * h * w * c for h, w, c in shapes) * 4
+                nbytes = grad.numel() * size + grid.numel() * 4 + acc_bytes \
+                    + acc_bytes // 4 * size
+                # per g value and corner: a weight product and an add
+                b_ms, b_by = bound(8.0 * grad.numel(), H100_F32_FLOPS, nbytes)
+                t = {"ms": time_ms(lambda: gather_lerp_bwd(grid, grad, shapes, dtype)),
+                     "plain_ms": time_ms(lambda: gather_lerp_bwd_plain(grid, grad, shapes, dtype),
+                                         iters=3),
+                     "library_ms": time_ms(library, iters=3),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     # where the time goes: the fine and the coarse levels alone
+                     "ms_levels_0_2": time_ms(lambda: gather_lerp_bwd(
+                         grid, grad_fine, shapes[:3], dtype)),
+                     "ms_levels_3_4": time_ms(lambda: gather_lerp_bwd(
+                         grid, grad_coarse, shapes[3:], dtype))}
+                res.update(t)
+                timed[kind] = t
+            emit(res)
+            if not ok:
+                raise AssertionError(f"gather_lerp_bwd disagrees with its plain version: {res}")
+    # the kernels line quotes the clustered grid (the cascade's case) and
+    # the largest error over every case
+    return dict(timed["clustered"], ms_uniform=timed["uniform"]["ms"],
+                max_abs_err=max(errs.values()), dtype="float32", err_by_case=errs)
 
 
 # ---- phase 3: card against CPU ---------------------------------------------
@@ -430,17 +544,19 @@ def serve(cfg, batch_size: int, requests: int, device):
     return res, f32
 
 
-def profile_step(predictor, frames_seed: int = 7):
-    """Device time by kernel name over two serving steps (torch.profiler)."""
+PROFILE_GROUPS = ("gather_lerp_bwd", "gather_lerp", "sdf_mlp", "Memcpy")
+
+
+def profile_breakdown(fn, steps: int, phase: str, **extra):
+    """Device time by kernel name over ``steps`` calls of ``fn``
+    (torch.profiler), grouped: each kernel of the port, the host-device
+    copies, and everything else."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from hoisdf_torch.data.synthetic import synthetic_batch
-
-    fr = synthetic_batch(predictor.cfg, predictor.batch_size, seed=frames_seed)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            predictor.predict(fr)
+        for _ in range(steps):
+            fn()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -448,20 +564,158 @@ def profile_step(predictor, frames_seed: int = 7):
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
         if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / 2e3, ev.count // 2, ev.key[:80]))
+            rows.append((dev_us / steps / 1e3, ev.count // steps, ev.key[:80]))
     rows.sort(reverse=True)
     groups = {}
     for ms, calls, key in rows:
-        name = next((g for g in ("sdf_mlp", "gather_lerp", "Memcpy") if g in key), "other")
+        name = next((g for g in PROFILE_GROUPS if g in key), "other")
         acc = groups.setdefault(name, {"ms": 0.0, "launches": 0})
         acc["ms"] += ms
         acc["launches"] += calls
-    out = {"phase": "profile", "steps": 2,
+    # the operators that launched the most device time, kernels included
+    ops = sorted(((getattr(ev, "device_time_total", 0.0) / steps / 1e3, ev.count // steps,
+                   ev.key[:60]) for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CPU
+                  and ev.key.startswith("aten::")), reverse=True)
+    out = {"phase": phase, "steps": steps, **extra,
            "device_ms_per_step": sum(r[0] for r in rows),
            "launches_per_step": sum(r[1] for r in rows), "by_group": groups,
-           "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:15]]}
+           "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:15]],
+           "top_ops": [{"ms": r[0], "calls": r[1], "op": r[2]} for r in ops[:12]]}
     emit(out)
     return out
+
+
+def profile_step(predictor, frames_seed: int = 7):
+    """Device time by kernel name over two serving steps."""
+    from hoisdf_torch.data.synthetic import synthetic_batch
+
+    fr = synthetic_batch(predictor.cfg, predictor.batch_size, seed=frames_seed)
+    return profile_breakdown(lambda: predictor.predict(fr), 2, "profile")
+
+
+# ---- phases 5 and 6: training ------------------------------------------------
+
+def _train_parts(cfg, device, seed: int = 0, dropout: bool = True):
+    """A seeded model in a train state on ``device``, and the train step."""
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.models.hoisdf import build_model
+    from hoisdf_torch.models.layers import Dropout
+    from hoisdf_torch.train import create_train_state, make_train_step
+
+    model = build_model(cfg, seed)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+    state = create_train_state(cfg, model, steps_per_epoch=100, device=device)
+    return state, make_train_step(cfg, ManoBuffers.from_model(make_synthetic_mano(0)),
+                                  device=device)
+
+
+def train(cfg, batch_size: int, device, steps: int = 3, seed: int = 0):
+    """The main train path: presampled and field-guided steps at full width,
+    the branch and the jitter distance from presample_gate (p = 0.0 and 0.9
+    at the point-sampling epoch, halfway through it)."""
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+    from hoisdf_torch.train import presample_gate
+
+    state, step = _train_parts(cfg, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    batches = [split_inputs_targets(synthetic_batch(cfg, batch_size, seed=200 + i, train=True))
+               for i in range(2)]
+    epoch = cfg.point_sampling_epoch
+    branches = {"presampled": presample_gate(cfg, epoch, 0.5, 0.0),
+                "field_guided": presample_gate(cfg, epoch, 0.5, 0.9)}
+    if not branches["presampled"][0] or branches["field_guided"][0]:
+        raise AssertionError(f"presample_gate did not give both branches: {branches}")
+    for pre, dist in branches.values():  # warmup: one step of each
+        step(state, *batches[0], gen, dist, use_presampled=pre)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+
+    res = {"phase": "train", "batch": batch_size, "compute_dtype": cfg.compute_dtype,
+           "steps_per_branch": steps, "tf32": False}
+    counts_all = {k: 0 for k in launch_counts}
+    finite = True
+    for name, (pre, dist) in branches.items():
+        reset_launch_counts()
+        times, last = [], None
+        for i in range(steps):
+            t0 = time.perf_counter()
+            _, last = step(state, *batches[i % 2], gen, dist, use_presampled=pre)
+            torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(launch_counts)
+        last = {k: float(v) for k, v in last.items()}
+        finite = finite and all(np.isfinite(v) for v in last.values())
+        for k, v in counts.items():
+            counts_all[k] += v
+        res[name] = {"dist_range": dist, "median_ms": float(np.median(times)), "ms": times,
+                     "launches_per_step": {k: v / steps for k, v in counts.items()},
+                     "losses": last}
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    res["launches"] = counts_all
+    res["finite"] = finite
+    need = {"presampled": ("gather_lerp", "gather_lerp_bwd"),
+            "field_guided": ("sdf_mlp", "gather_lerp", "gather_lerp_bwd")}
+    res["ok"] = finite and all(res[b]["launches_per_step"][k] > 0
+                               for b, keys in need.items() for k in keys)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("train phase failed: a loss is not finite or a kernel never ran")
+    pre, dist = branches["field_guided"]
+    profile_breakdown(lambda: step(state, *batches[0], gen, dist, use_presampled=pre), 1,
+                      "train_profile", branch="field_guided", batch=batch_size)
+    return res
+
+
+def compare_train_step(cfg, batch_size: int, device, seed: int = 0,
+                       loss_tol: float = 1e-4, grad_tol: float = 1e-2):
+    """One presampled train step on the card and on the CPU from the same
+    seeded weights and inputs, f32, TF32 off, dropout off, no jitter.  Each
+    loss must agree within ``loss_tol`` relative (absolute below 1e-3), and
+    the gradient norm of each parameter group (the model's top-level
+    modules) within ``grad_tol`` relative.  Sums are taken in another order,
+    and this model's gradients are ill-conditioned: a ReLU whose input lies
+    within rounding of zero switches, and the scalar SDF betas sum many
+    terms that cancel (the port alone, on 1 and on 8 CPU threads, differs
+    by up to 1 % per tensor at the tiny size)."""
+    import math
+
+    from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
+
+    inputs, targets = split_inputs_targets(synthetic_batch(cfg, batch_size, seed=seed + 5,
+                                                           train=True))
+    runs = {}
+    for dev in (device, "cpu"):
+        state, step = _train_parts(cfg, dev, seed, dropout=False)
+        _, losses = step(state, inputs, targets, None, 0.0, use_presampled=True)
+        norms = {}
+        for name, p in state.model.named_parameters():
+            group = name.split(".")[0]
+            norms[group] = norms.get(group, 0.0) + p.grad.double().pow(2).sum().item()
+        runs[dev] = ({k: float(v) for k, v in losses.items()},
+                     {k: math.sqrt(v) for k, v in norms.items()})
+    (loss_d, norm_d), (loss_c, norm_c) = runs[device], runs["cpu"]
+    loss_err = {k: abs(loss_d[k] - v) / max(abs(v), 1e-3) for k, v in loss_c.items()}
+    grad_err = {k: abs(norm_d[k] - v) / max(v, 1e-12) for k, v in norm_c.items()}
+    finite = all(math.isfinite(v) for v in (*loss_d.values(), *norm_d.values()))
+    res = {"phase": "train_check", "batch": batch_size, "dtype": "float32", "tf32": False,
+           "dropout": False, "dist_range": 0.0, "losses_card": loss_d, "loss_rel_err": loss_err,
+           "loss_tol": loss_tol, "grad_norm_card": norm_d, "grad_norm_rel_err": grad_err,
+           "grad_tol": grad_tol, "finite": finite}
+    res["ok"] = (finite and set(loss_d) == set(loss_c) and max(loss_err.values()) <= loss_tol
+                 and max(grad_err.values()) <= grad_tol)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("card and CPU disagree on the train step")
+    return res
 
 
 def main() -> int:
@@ -486,29 +740,48 @@ def main() -> int:
           "card": torch.cuda.get_device_name(0), "nvidia_smi": smi, "ptxas": regs})
 
     serve_batch = 22
+    train_cfg = get_config("dexycb")  # the preset: f32 compute, train batch 22
     sdf_timed = check_sdf_mlp(device, batch=serve_batch)
     gather_timed = check_gather_lerp(device, batch=serve_batch, points=3584)
+    # the gather backward's largest train launch: the merged token gather
+    bwd_timed = check_gather_lerp_bwd(device, batch=train_cfg.train_batch_size,
+                                      points=train_cfg.num_samp_hand + train_cfg.num_samp_obj)
 
     compare_forward(get_config("dexycb", compute_dtype="float32"), 2, device)
 
     serve_res, predictor = serve(get_config("dexycb", compute_dtype="bfloat16"),
                                  serve_batch, requests=40, device=device)
     profile_step(predictor)
+    del predictor
 
-    launches = serve_res["launches"]
+    train_res = train(train_cfg, train_cfg.train_batch_size, device)
+    compare_train_step(train_cfg, 2, device)
+
+    launches, train_launches = serve_res["launches"], train_res["launches"]
     kernels = [
         {"name": "sdf_mlp", "route": "cuda", "source": "hoisdf_torch/csrc/sdf_mlp.cu",
          "replaces": SDF_TPU, "launches": launches["sdf_mlp"],
+         "launches_train": train_launches["sdf_mlp"],
          "max_abs_err": sdf_timed["max_abs_err"], "ms": sdf_timed["ms"],
          "plain_ms": sdf_timed["plain_ms"], "bound_ms": sdf_timed["bound_ms"],
          "bound_by": sdf_timed["bound_by"], "library_ms": sdf_timed["library_ms"],
-         "step_ms": sdf_timed["step_ms"], "step_bound_ms": sdf_timed["step_bound_ms"]},
+         **{k: sdf_timed[k] for k in ("step_ms", "step_bound_ms", "step_library_ms",
+                                      "step_plain_ms", "f32_step_ms", "f32_step_bound_ms",
+                                      "f32_step_library_ms", "f32_step_plain_ms")}},
         {"name": "gather_lerp", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_TPU,
-         "launches": launches["gather_lerp"], "max_abs_err": gather_timed["max_abs_err"],
+         "launches": launches["gather_lerp"], "launches_train": train_launches["gather_lerp"],
+         "max_abs_err": gather_timed["max_abs_err"],
          "ms": gather_timed["ms"], "plain_ms": gather_timed["plain_ms"],
          "bound_ms": gather_timed["bound_ms"], "bound_by": gather_timed["bound_by"],
          "library_ms": gather_timed["library_ms"]},
+        {"name": "gather_lerp_bwd", "route": "cuda",
+         "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_BWD_TPU,
+         "launches": train_launches["gather_lerp_bwd"],
+         "max_abs_err": bwd_timed["max_abs_err"], "ms": bwd_timed["ms"],
+         "plain_ms": bwd_timed["plain_ms"], "bound_ms": bwd_timed["bound_ms"],
+         "bound_by": bwd_timed["bound_by"], "library_ms": bwd_timed["library_ms"],
+         "ms_uniform": bwd_timed["ms_uniform"]},
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi, flush=True)

@@ -1,6 +1,7 @@
 // Multi-level bilinear feature gather for Hopper (sm_90a).
 //
-// Replaces the TPU Pallas kernel hoisdf_tpu/ops/pallas/gather_lerp.py::
+// Forward and backward.  The forward replaces the TPU Pallas kernel
+// hoisdf_tpu/ops/pallas/gather_lerp.py::
 // fused_gather_lerp3 (body `_kernel`), widened from its three levels to the
 // whole pyramid (up to five NHWC maps), so one launch serves
 // multiscale_point_features.  For each point of grid[B, P, 2] in [-1, 1] and
@@ -160,6 +161,108 @@ gather_lerp_kernel(const float* __restrict__ grid, int p, int ppb, const Levels 
   }
 }
 
+// ---- backward --------------------------------------------------------------
+//
+// d/dfeat of the gather: for each point and level, the 4-corner scatter-add of
+// g * weight, with the corners and weights of the forward (the JAX package's
+// hand-written VJP hoisdf_tpu/ops/grid_sample.py::_gsb_fast_bwd; no gradient
+// for the grid, which every caller detaches).  A warp takes a point; its lanes
+// walk the concatenated channel axis of g in 16-byte vectors, as the forward
+// does, and each lane adds its four weighted vectors into a zeroed f32 buffer
+// with f32 atomics (red.global.add).  The wrapper casts the buffer to the
+// maps' type.
+//
+// What bounds it on this card: the atomics, not the bytes.  A point issues
+// 4 x C atomic adds; on the coarse levels (stride32 is 8 x 8 cells) every
+// point of an image lands on the same few cells, so the adds to one address
+// serialise in L2.  The order of the adds changes from run to run, so d/dfeat
+// is not bitwise repeatable.  Accumulating a block's points in shared memory
+// first is the next design.
+
+struct BwdLevel {
+  int h, w, c, c_off;
+  int v_begin;      // the level's first lane slot on the concatenated channel axis
+  long long a_off;  // the level's offset in the f32 buffer, in floats
+};
+
+struct BwdLevels {
+  BwdLevel lv[kMaxLevels];
+  int n, c_total, v_total;
+};
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+// Block (i, b) serves points [i * kBwdWarps, (i + 1) * kBwdWarps) of image b.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBwdThreads)
+gather_lerp_bwd_kernel(const float* __restrict__ grid, const T* __restrict__ g, int p,
+                       const BwdLevels L, float* __restrict__ acc) {
+  __shared__ BwdLevel lv_s[kMaxLevels];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.y;
+  if (tid < L.n) lv_s[tid] = L.lv[tid];
+  __syncthreads();
+  const int pt = blockIdx.x * kBwdWarps + warp;
+  if (pt >= p) return;
+  const size_t point = (size_t)b * p + pt;
+  const float gx = grid[2 * point], gy = grid[2 * point + 1];
+  const T* grow = g + point * L.c_total;
+  for (int v = lane; v < L.v_total; v += 32) {
+    int l = 0;
+#pragma unroll
+    for (int i = 1; i < kMaxLevels; ++i) l += (i < L.n && v >= L.lv[i].v_begin);
+    const BwdLevel lv = lv_s[l];
+    const float wm1 = (float)(lv.w - 1), hm1 = (float)(lv.h - 1);
+    const float x = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(gx, 1.f), 0.5f), wm1), 0.f), wm1);
+    const float y = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(gy, 1.f), 0.5f), hm1), 0.f), hm1);
+    const float x0f = floorf(x), y0f = floorf(y);
+    const int x0 = (int)x0f, y0 = (int)y0f;
+    const int x1 = min(x0 + 1, lv.w - 1), y1 = min(y0 + 1, lv.h - 1);
+    const float wx = __fsub_rn(x, x0f), wy = __fsub_rn(y, y0f);
+    const float ux = __fsub_rn(1.f, wx), uy = __fsub_rn(1.f, wy);
+    const float w00 = __fmul_rn(ux, uy), w01 = __fmul_rn(wx, uy);
+    const float w10 = __fmul_rn(ux, wy), w11 = __fmul_rn(wx, wy);
+    const int c = (v - lv.v_begin) * VEC;
+    const Vec<T, VEC> gv = *reinterpret_cast<const Vec<T, VEC>*>(grow + lv.c_off + c);
+    float* base = acc + lv.a_off + (size_t)b * lv.h * lv.w * lv.c + c;
+    float* a00 = base + (size_t)(y0 * lv.w + x0) * lv.c;
+    float* a01 = base + (size_t)(y0 * lv.w + x1) * lv.c;
+    float* a10 = base + (size_t)(y1 * lv.w + x0) * lv.c;
+    float* a11 = base + (size_t)(y1 * lv.w + x1) * lv.c;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float gi = to_f(gv.v[i]);
+      atomicAdd(a00 + i, __fmul_rn(gi, w00));
+      atomicAdd(a01 + i, __fmul_rn(gi, w01));
+      atomicAdd(a10 + i, __fmul_rn(gi, w10));
+      atomicAdd(a11 + i, __fmul_rn(gi, w11));
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const float* grid, const void* g, int b, int p, BwdLevels L, float* acc,
+                       cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  bool vec_ok = reinterpret_cast<uintptr_t>(g) % 16 == 0 && L.c_total % kVec == 0;
+  for (int l = 0; l < L.n; ++l) vec_ok = vec_ok && L.lv[l].c % kVec == 0;
+  const int vec = vec_ok ? kVec : 1;
+  int v = 0;
+  for (int l = 0; l < L.n; ++l) {
+    L.lv[l].v_begin = v;
+    v += L.lv[l].c / vec;
+  }
+  L.v_total = v;
+  const dim3 blocks((p + kBwdWarps - 1) / kBwdWarps, b);
+  const T* gt = static_cast<const T*>(g);
+  if (vec_ok)
+    gather_lerp_bwd_kernel<T, kVec><<<blocks, kBwdThreads, 0, stream>>>(grid, gt, p, L, acc);
+  else
+    gather_lerp_bwd_kernel<T, 1><<<blocks, kBwdThreads, 0, stream>>>(grid, gt, p, L, acc);
+  return cudaGetLastError();
+}
+
 // SMs of the current device.  The attribute query costs tens of microseconds,
 // as much as a small launch, so the answer is kept, per device.
 cudaError_t sm_count(int* sms) {
@@ -252,5 +355,33 @@ extern "C" int gather_lerp_launch(const void* grid, int b, int p, int n_levels,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(g, b, p, L, out, s);
   if (dtype == 1) return launch<__nv_bfloat16>(g, b, p, L, out, s);
+  return cudaErrorInvalidValue;
+}
+
+// grid: [b, p, 2] f32; g: [b, p, sum c] in g_dtype (0 = float32, 1 = bfloat16);
+// dims: n_levels x (h, w, c); acc: the n_levels f32 maps [b, h, w, c] laid end
+// to end, zeroed by the caller.  Adds d/dfeat into acc.  Returns a cudaError_t.
+extern "C" int gather_lerp_bwd_launch(const void* grid, const void* g, int b, int p,
+                                      int n_levels, const int* dims, int g_dtype, void* acc,
+                                      void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return cudaErrorInvalidValue;
+  if (b * p == 0) return cudaSuccess;
+  if (b > 65535) return cudaErrorInvalidValue;  // images ride the grid's y axis
+  BwdLevels L;
+  L.n = n_levels;
+  int off = 0;
+  long long a_off = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    const int h = dims[3 * l], w = dims[3 * l + 1], c = dims[3 * l + 2];
+    L.lv[l] = BwdLevel{h, w, c, off, 0, a_off};
+    off += c;
+    a_off += (long long)b * h * w * c;
+  }
+  L.c_total = off;
+  const float* gr = static_cast<const float*>(grid);
+  float* a = static_cast<float*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g_dtype == 0) return launch_bwd<float>(gr, g, b, p, L, a, s);
+  if (g_dtype == 1) return launch_bwd<__nv_bfloat16>(gr, g, b, p, L, a, s);
   return cudaErrorInvalidValue;
 }

@@ -15,26 +15,26 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from hoisdf_torch.models.layers import Conv2d, ConvTranspose2d
+from hoisdf_torch.models.layers import BatchNorm2d, Conv2d, ConvTranspose2d
 
 
 def conv_bn_relu(cin: int, cout: int, kernel: int) -> nn.Sequential:
     return nn.Sequential(
         Conv2d(cin, cout, kernel, 1, kernel // 2, bias=True),
-        nn.BatchNorm2d(cout, eps=1e-5), nn.ReLU(),
+        BatchNorm2d(cout), nn.ReLU(),
     )
 
 
 def deconv_bn_relu(cin: int, cout: int) -> nn.Sequential:
     return nn.Sequential(
         ConvTranspose2d(cin, cout, 4, 2, 1, bias=False),
-        nn.BatchNorm2d(cout, eps=1e-5), nn.ReLU(),
+        BatchNorm2d(cout), nn.ReLU(),
     )
 
 
 def _head(cin: int, hidden: int) -> nn.Sequential:
     return nn.Sequential(
-        Conv2d(cin, hidden, 1, 1, 0, bias=True), nn.BatchNorm2d(hidden, eps=1e-5),
+        Conv2d(cin, hidden, 1, 1, 0, bias=True), BatchNorm2d(hidden),
         nn.ReLU(), Conv2d(hidden, 1, 1, 1, 0, bias=True),
     )
 

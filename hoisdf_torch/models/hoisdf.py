@@ -1,21 +1,30 @@
-"""HOISDF: global-SDF-guided hand+object pose estimation, eval forward
+"""HOISDF: global-SDF-guided hand+object pose estimation
 (``hoisdf_tpu/models/hoisdf.py``).
 
-The eval branch only: points come from the field-guided sampler
-(``use_presampled=False``), token features and cross-field queries share one
-merged pyramid gather (``merged_field_queries=True``), and the hand and object
-cascades run separately.  Module and parameter names are the original PyTorch
-HOISDF's; the dead heads ``linear_objvote`` / ``linear_objcls`` and the unused
-``norm1`` are left out, as in the JAX package.
+Token points come from the field-guided sampler (eval, and the field-guided
+train steps) or, with ``use_presampled``, from the batch's ground-truth-near
+points jittered uniformly in +-``dist_range`` (the other train steps).  Token
+features and cross-field queries share one merged pyramid gather
+(``merged_field_queries=True``), and the hand and object cascades run
+separately.  The module's mode is the train flag: ``model.train()`` puts
+BatchNorm on batch statistics and turns dropout on, whose masks (and the
+jitter) come from the ``generator`` passed to ``forward``.  Module and
+parameter names are the original PyTorch HOISDF's; the dead heads
+``linear_objvote`` / ``linear_objcls`` and the unused ``norm1`` are left out,
+as in the JAX package.
 
 The two hot kernels run here: every cascade probe gathers its pyramid
-features through ``gather_lerp`` and scores them through ``sdf_mlp``.
+features through ``gather_lerp`` and scores them through ``sdf_mlp``; the
+supervised SDF queries and the token gather differentiate through
+``gather_lerp``'s backward kernel.  The sampler runs without gradients and
+without dropout in every mode (the JAX package's kernel route; its CPU route
+applies the decoder's dropout inside the sampler in train mode).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -79,12 +88,16 @@ class HOISDF(nn.Module):
         backbone = ResNetBackbone(c.resnet_type)
         self.backbone_net = nn.ModuleDict({"resnet": backbone})
         self.decoder_net = nn.ModuleDict({"resnet_decoder": Decoder(backbone.skip_channels)})
-        self.hand_sdf_decoder = SDFDecoder(c.hidden_dim, c.point_feat_size)
-        self.obj_sdf_decoder = SDFDecoder(c.hidden_dim, c.point_feat_size)
+        self.hand_sdf_decoder = SDFDecoder(c.hidden_dim, c.point_feat_size,
+                                           use_classifier=c.classifier_branch,
+                                           num_class=c.num_class)
+        self.obj_sdf_decoder = SDFDecoder(c.hidden_dim, c.point_feat_size,
+                                          use_classifier=c.classifier_branch,
+                                          num_class=c.num_class)
         self.hand_transformer = Transformer(c.hidden_dim, c.nheads, c.enc_layers,
-                                           c.dec_layers, c.dim_feedforward)
+                                           c.dec_layers, c.dim_feedforward, c.dropout)
         self.obj_transformer = VoteTransformer(c.hidden_dim, c.nheads, c.enc_layers // 2,
-                                               c.dim_feedforward)
+                                               c.dim_feedforward, c.dropout)
         ms, hd = c.multiscale_dim, c.hidden_dim
         self.linear_transformerin = MLP(ms, (1024, 512, 256, hd - c.point_feat_size),
                                         relu_last=True)
@@ -121,17 +134,24 @@ class HOISDF(nn.Module):
         dec_in = torch.cat([points_fea.float(), posenc, points_scaled], dim=-1)
         return dec_in.to(self.compute_dtype).reshape(-1, dec_in.shape[-1])
 
-    def sdf_forward(self, pyramid, points_scaled, center, cam_intr, sdf_scale, which):
-        """Clamped SDF at arbitrary scaled-frame points -> [B, P, 1] f32."""
+    def sdf_forward(self, pyramid, points_scaled, center, cam_intr, sdf_scale, which,
+                    generator: Optional[torch.Generator] = None):
+        """Clamped SDF at arbitrary scaled-frame points -> (sdf [B, P, 1] f32,
+        part-class logits [B, P, num_class] or None)."""
         flat = self._sdf_decoder_inputs(pyramid, points_scaled, center, cam_intr, sdf_scale)
         decoder = self.hand_sdf_decoder if which == "hand" else self.obj_sdf_decoder
-        sdf = decoder(flat).reshape(*points_scaled.shape[:2], 1).float()
+        sdf, logits = decoder(flat, generator)
+        sdf = sdf.reshape(*points_scaled.shape[:2], 1).float()
         c = self.cfg.clamping_distance
-        return torch.clamp(sdf, -c, c)
+        if logits is not None:
+            logits = logits.reshape(*points_scaled.shape[:2], -1)
+        return torch.clamp(sdf, -c, c), logits
 
+    @torch.no_grad()
     def sdf_infer(self, pyramid, center, cam_intr, bbox, sdf_scale, num_points, which):
-        """Field-guided sampling: each cascade probe runs the two kernels.
-        The sampler's sdf is unclamped; only the selected values are clamped."""
+        """Field-guided sampling, without gradients: each cascade probe runs
+        the two kernels.  The sampler's sdf is unclamped; only the selected
+        values are clamped."""
         c = self.cfg
         decoder = self.hand_sdf_decoder if which == "hand" else self.obj_sdf_decoder
         weights = prepare_weights(fold_weight_norm(decoder), self.compute_dtype)
@@ -151,7 +171,8 @@ class HOISDF(nn.Module):
         return points, sdf, nerf_positional_encoding(points, c.nerf_num_freqs)
 
     def token_and_cross_queries(self, pyramid, hand_points, obj_points, mano_root,
-                                obj_center, cam_intr):
+                                obj_center, cam_intr,
+                                generator: Optional[torch.Generator] = None):
         """Token features and the cross-field SDF queries off one merged
         [B, Ph+Po] pyramid gather (the cross queries sample at the same camera
         points as the tokens)."""
@@ -176,7 +197,7 @@ class HOISDF(nn.Module):
 
         def cross_sdf(fea, posenc, pts, decoder):
             dec_in = torch.cat([fea.float(), posenc, pts], dim=-1).to(self.compute_dtype)
-            sdf = decoder(dec_in.reshape(-1, dec_in.shape[-1]))
+            sdf, _ = decoder(dec_in.reshape(-1, dec_in.shape[-1]), generator)
             sdf = sdf.reshape(*pts.shape[:2], 1).float()
             return torch.clamp(sdf, -c.clamping_distance, c.clamping_distance)
 
@@ -189,12 +210,16 @@ class HOISDF(nn.Module):
 
     # ---- full forward ------------------------------------------------------
 
-    def forward(self, batch: Dict[str, torch.Tensor], *, supervise_sdf: bool = True
-                ) -> Dict[str, Any]:
-        """Eval forward.  ``batch`` holds ``img`` [B,H,W,3] (NHWC, as the
-        loaders give it), ``cam_intr``, ``mano_root``, ``obj_center_cam``,
-        ``bbox_hand``, ``bbox_obj``, and with ``supervise_sdf`` the
-        ``hand_sdf_points`` / ``obj_sdf_points`` to query."""
+    def forward(self, batch: Dict[str, torch.Tensor], *, supervise_sdf: bool = True,
+                use_presampled: bool = False, dist_range: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """Forward in the module's mode.  ``batch`` holds ``img`` [B,H,W,3]
+        (NHWC, as the loaders give it), ``cam_intr``, ``mano_root``,
+        ``obj_center_cam``, ``bbox_hand``, ``bbox_obj``, with
+        ``supervise_sdf`` the ``hand_sdf_points`` / ``obj_sdf_points`` to
+        query, and with ``use_presampled`` the ``hand_pre_points`` /
+        ``obj_pre_points`` to jitter.  ``generator`` (on the batch's device)
+        draws the jitter and the dropout masks."""
         c = self.cfg
         dt = self.compute_dtype
         out: Dict[str, Any] = {}
@@ -208,46 +233,67 @@ class HOISDF(nn.Module):
         pyramid = {k: _nhwc(v) for k, v in pyr.items()}
 
         if supervise_sdf:
-            out["hand_sdf_pred"] = self.sdf_forward(
+            out["hand_sdf_pred"], hand_logits = self.sdf_forward(
                 pyramid, batch["hand_sdf_points"], mano_root, cam_intr,
-                c.hand_sdf_scale, "hand")
-            out["obj_sdf_pred"] = self.sdf_forward(
+                c.hand_sdf_scale, "hand", generator)
+            out["obj_sdf_pred"], obj_logits = self.sdf_forward(
                 pyramid, batch["obj_sdf_points"], obj_center, cam_intr,
-                c.obj_sdf_scale, "obj")
+                c.obj_sdf_scale, "obj", generator)
+            if hand_logits is not None:
+                out["hand_cls_logits"] = hand_logits.float()
+                out["obj_cls_logits"] = obj_logits.float()
 
-        hand_points, hand_sdf, hand_posenc = self.sdf_infer(
-            pyramid, mano_root, cam_intr, batch["bbox_hand"], c.hand_sdf_scale,
-            c.num_samp_hand, "hand")
-        obj_points, obj_sdf, obj_posenc = self.sdf_infer(
-            pyramid, obj_center, cam_intr, batch["bbox_obj"], c.obj_sdf_scale,
-            c.num_samp_obj, "obj")
-        sigma_hand = sdf_attention_weight(hand_sdf, self.hand_sigmoid_beta)
-        sigma_obj = sdf_attention_weight(obj_sdf, self.obj_sigmoid_beta)
+        if use_presampled:
+            def jitter(pts):  # uniform in [-dist_range, dist_range)
+                u = torch.rand(pts.shape, generator=generator, device=pts.device)
+                return pts + (u * 2.0 - 1.0) * dist_range
+
+            hand_points = jitter(batch["hand_pre_points"])
+            obj_points = jitter(batch["obj_pre_points"])
+            hand_sdf, _ = self.sdf_forward(pyramid, hand_points, mano_root, cam_intr,
+                                           c.hand_sdf_scale, "hand", generator)
+            obj_sdf, _ = self.sdf_forward(pyramid, obj_points, obj_center, cam_intr,
+                                          c.obj_sdf_scale, "obj", generator)
+            hand_posenc = nerf_positional_encoding(hand_points, c.nerf_num_freqs)
+            obj_posenc = nerf_positional_encoding(obj_points, c.nerf_num_freqs)
+        else:
+            hand_points, hand_sdf, hand_posenc = self.sdf_infer(
+                pyramid, mano_root, cam_intr, batch["bbox_hand"], c.hand_sdf_scale,
+                c.num_samp_hand, "hand")
+            obj_points, obj_sdf, obj_posenc = self.sdf_infer(
+                pyramid, obj_center, cam_intr, batch["bbox_obj"], c.obj_sdf_scale,
+                c.num_samp_obj, "obj")
+        sigma_hand = sdf_attention_weight(hand_sdf.detach(), self.hand_sigmoid_beta)
+        sigma_obj = sdf_attention_weight(obj_sdf.detach(), self.obj_sigmoid_beta)
 
         (hand_fea, obj_fea, hand_cam, obj_cam, hand_o_sdf, hand_o_posenc,
          obj_h_sdf, obj_h_posenc) = self.token_and_cross_queries(
-            pyramid, hand_points, obj_points, mano_root, obj_center, cam_intr)
+            pyramid, hand_points, obj_points, mano_root, obj_center, cam_intr, generator)
         hand_points_notrans = hand_cam - mano_root[:, None, :]
         obj_points_notrans = obj_cam - obj_center[:, None, :]
         hand_o_points_notrans = hand_cam - obj_center[:, None, :]
         obj_h_points_notrans = obj_cam - mano_root[:, None, :]
-        sigma_hand_o = sdf_attention_weight(hand_o_sdf, self.obj_sigmoid_beta)
-        sigma_obj_h = sdf_attention_weight(obj_h_sdf, self.hand_sigmoid_beta)
+        sigma_hand_o = sdf_attention_weight(hand_o_sdf.detach(), self.obj_sigmoid_beta)
+        sigma_obj_h = sdf_attention_weight(obj_h_sdf.detach(), self.hand_sigmoid_beta)
 
-        # Tokens: [xyz_rel ++ posenc ++ sigma * feat]
+        # Tokens: [xyz_rel ++ posenc ++ sigma * feat]; the other field's
+        # tokens carry no gradient
         hand_src = torch.cat([
             torch.cat([hand_points_notrans, hand_posenc, hand_fea * sigma_hand], -1),
-            torch.cat([obj_h_points_notrans, obj_h_posenc, obj_fea * sigma_obj_h], -1),
+            torch.cat([obj_h_points_notrans, obj_h_posenc, obj_fea * sigma_obj_h],
+                      -1).detach(),
         ], dim=1).to(dt)
         obj_src = torch.cat([
             torch.cat([obj_points_notrans, obj_posenc, obj_fea * sigma_obj], -1),
-            torch.cat([hand_o_points_notrans, hand_o_posenc, hand_fea * sigma_hand_o], -1),
+            torch.cat([hand_o_points_notrans, hand_o_posenc, hand_fea * sigma_hand_o],
+                      -1).detach(),
         ], dim=1).to(dt)
 
         hs, _memory, hand_enc_out, attn_wts = self.hand_transformer(
             hand_src, torch.zeros_like(hand_src), self.mano_query_embed.weight,
-            self.tgt_mask, self.memory_mask)
-        _obj_memory, obj_enc_out = self.obj_transformer(obj_src, torch.zeros_like(obj_src))
+            self.tgt_mask, self.memory_mask, generator=generator)
+        _obj_memory, obj_enc_out = self.obj_transformer(
+            obj_src, torch.zeros_like(obj_src), generator=generator)
 
         hand_enc_hand = hand_enc_out[:, :, : c.num_samp_hand]
         out["hand_off"] = self.linear_handvote(hand_enc_hand).float()  # [L,B,P,60]

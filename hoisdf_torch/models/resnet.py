@@ -1,8 +1,8 @@
 """ResNet backbone with multi-stride skip features (``hoisdf_tpu/models/resnet.py``).
 
 torchvision's BasicBlock / Bottleneck layout and key names (stride on the 3x3
-conv), NCHW.  BatchNorm runs on its running statistics (eps 1e-5), kept in
-f32 under bf16 compute.
+conv), NCHW.  BatchNorm (eps 1e-5) keeps f32 statistics under bf16 compute;
+in train mode it updates them by flax's rule (``layers.BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from hoisdf_torch.models.layers import Conv2d
+from hoisdf_torch.models.layers import BatchNorm2d, Conv2d
 
 RESNET_SPECS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -23,8 +23,8 @@ RESNET_SPECS = {
 }
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c)
 
 
 class BasicBlock(nn.Module):

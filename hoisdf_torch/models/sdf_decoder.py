@@ -1,20 +1,22 @@
-"""DeepSDF-style signed-distance decoder, eval mode
-(``hoisdf_tpu/models/sdf_decoder.py``).
+"""DeepSDF-style signed-distance decoder (``hoisdf_tpu/models/sdf_decoder.py``).
 
 Dims [in, 512, 512 - in, 512, 512, 1] with weight normalization on layers
 0-3 (written out by hand so the keys stay ``weight_g`` [out, 1] /
 ``weight_v`` / ``bias``), the latent skip re-concat of the full input before
-layer 2, ReLU between hidden layers and a final tanh.  Dropout is an identity
-in eval and is not modelled.
+layer 2, ReLU and (train mode) dropout 0.2 after hidden layers 0-3, and a
+final tanh.  With ``use_classifier`` a ``classifier_head`` gives part-class
+logits from the last hidden layer.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hoisdf_torch.models.layers import Linear
+from hoisdf_torch.models.layers import Dropout, Linear
 
 
 class WeightNormLinear(nn.Module):
@@ -37,7 +39,8 @@ class WeightNormLinear(nn.Module):
 
 class SDFDecoder(nn.Module):
     def __init__(self, latent_size: int = 256, point_feat_size: int = 33,
-                 dims=(512, 512, 512, 512)):
+                 dims=(512, 512, 512, 512), use_classifier: bool = False,
+                 num_class: int = 6):
         super().__init__()
         in_dim = latent_size + point_feat_size
         self.in_dim = in_dim
@@ -46,11 +49,16 @@ class SDFDecoder(nn.Module):
         self.linh2 = WeightNormLinear(dims[1], dims[2])
         self.linh3 = WeightNormLinear(dims[2], dims[3])
         self.linh4 = Linear(dims[3], 1)
+        self.classifier_head = Linear(dims[3], num_class) if use_classifier else None
+        self.dropout = Dropout(0.2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, in] -> sdf [N, 1] (tanh), in x's type."""
-        h = torch.relu(self.linh0(x))
-        h = torch.relu(self.linh1(h))
-        h = torch.relu(self.linh2(torch.cat([h, x], dim=-1)))
-        h = torch.relu(self.linh3(h))
-        return torch.tanh(self.linh4(h))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """x [N, in] -> (sdf [N, 1] (tanh), class logits [N, num_class] or
+        None), in x's type.  Dropout (train mode) draws from ``generator``."""
+        h = self.dropout(torch.relu(self.linh0(x)), generator)
+        h = self.dropout(torch.relu(self.linh1(h)), generator)
+        h = self.dropout(torch.relu(self.linh2(torch.cat([h, x], dim=-1))), generator)
+        h = self.dropout(torch.relu(self.linh3(h)), generator)
+        logits = None if self.classifier_head is None else self.classifier_head(h)
+        return torch.tanh(self.linh4(h)), logits

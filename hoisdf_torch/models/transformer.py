@@ -4,7 +4,10 @@ Post-norm layers, batch-first [B, T, C], packed-qkv attention that returns
 head-averaged weights, per-layer normed encoder intermediates, and decoder
 intermediates whose last entry is the final-norm output.  Masks are boolean
 (True = disallowed) and fill with the finite ``NEG_INF``, so a fully masked
-row gives uniform weights rather than NaN.  Eval only: dropout is an identity.
+row gives uniform weights rather than NaN.  Dropout (rate ``dropout``, train
+mode only) sits where the JAX package's does: on the attention weights, after
+each attention block, inside the feed-forward after the ReLU and after it; its
+masks come from the ``generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hoisdf_torch.models.layers import LayerNorm, Linear
+from hoisdf_torch.models.layers import Dropout, LayerNorm, Linear
 
 NEG_INF = -1e9
 
@@ -26,14 +29,16 @@ class MultiheadAttention(nn.Module):
     """``nn.MultiheadAttention``-compatible keys (in_proj_weight [3C, C],
     in_proj_bias, out_proj), written out so the weights come back."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
         self.d_model, self.nhead = d_model, nhead
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = Linear(d_model, d_model)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, query, key, value, attn_mask: Optional[torch.Tensor] = None
+    def forward(self, query, key, value, attn_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         c, nh = self.d_model, self.nhead
         hd = c // nh
@@ -50,73 +55,80 @@ class MultiheadAttention(nn.Module):
         logits = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
         if attn_mask is not None:
             logits = logits.masked_fill(attn_mask, NEG_INF)
-        weights = torch.softmax(logits, dim=-1)
+        weights = self.dropout(torch.softmax(logits, dim=-1), generator)
         out = (weights @ v).transpose(1, 2).reshape(bsz, tgt, c)
         return self.out_proj(out), weights.mean(dim=1)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, src, pos, src_mask=None):
+    def forward(self, src, pos, src_mask=None, generator=None):
         qk = src + pos
-        src = self.norm1(src + self.self_attn(qk, qk, src, src_mask)[0])
-        return self.norm2(src + self.linear2(torch.relu(self.linear1(src))))
+        sa = self.self_attn(qk, qk, src, src_mask, generator)[0]
+        src = self.norm1(src + self.dropout(sa, generator))
+        ff = self.linear2(self.dropout(torch.relu(self.linear1(src)), generator))
+        return self.norm2(src + self.dropout(ff, generator))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead)
-        self.multihead_attn = MultiheadAttention(d_model, nhead)
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, dropout)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.norm3 = LayerNorm(d_model)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, tgt, memory, pos, query_pos, tgt_mask=None, memory_mask=None):
+    def forward(self, tgt, memory, pos, query_pos, tgt_mask=None, memory_mask=None,
+                generator=None):
         qk = tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(qk, qk, tgt, tgt_mask)[0])
+        sa = self.self_attn(qk, qk, tgt, tgt_mask, generator)[0]
+        tgt = self.norm1(tgt + self.dropout(sa, generator))
         ca, attn_wts = self.multihead_attn(tgt + query_pos, memory + pos, memory,
-                                           memory_mask)
-        tgt = self.norm2(tgt + ca)
-        tgt = self.norm3(tgt + self.linear2(torch.relu(self.linear1(tgt))))
-        return tgt, attn_wts
+                                           memory_mask, generator)
+        tgt = self.norm2(tgt + self.dropout(ca, generator))
+        ff = self.linear2(self.dropout(torch.relu(self.linear1(tgt)), generator))
+        return self.norm3(tgt + self.dropout(ff, generator)), attn_wts
 
 
 class Encoder(nn.Module):
-    def __init__(self, d_model, nhead, dim_feedforward, num_layers):
+    def __init__(self, d_model, nhead, dim_feedforward, num_layers, dropout=0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, dim_feedforward) for _ in range(num_layers))
+            EncoderLayer(d_model, nhead, dim_feedforward, dropout) for _ in range(num_layers))
         self.inter_norm = LayerNorm(d_model)
 
-    def forward(self, src, pos, src_mask=None):
+    def forward(self, src, pos, src_mask=None, generator=None):
         out, inter = src, []
         for layer in self.layers:
-            out = layer(out, pos, src_mask)
+            out = layer(out, pos, src_mask, generator)
             inter.append(self.inter_norm(out))
         return out, torch.stack(inter)  # [L, B, S, C]
 
 
 class Decoder(nn.Module):
-    def __init__(self, d_model, nhead, dim_feedforward, num_layers):
+    def __init__(self, d_model, nhead, dim_feedforward, num_layers, dropout=0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, nhead, dim_feedforward) for _ in range(num_layers))
+            DecoderLayer(d_model, nhead, dim_feedforward, dropout) for _ in range(num_layers))
         self.norm = LayerNorm(d_model)
 
-    def forward(self, tgt, memory, pos, query_pos, tgt_mask=None, memory_mask=None):
+    def forward(self, tgt, memory, pos, query_pos, tgt_mask=None, memory_mask=None,
+                generator=None):
         out, inter, attn_all = tgt, [], []
         for layer in self.layers:
-            out, attn = layer(out, memory, pos, query_pos, tgt_mask, memory_mask)
+            out, attn = layer(out, memory, pos, query_pos, tgt_mask, memory_mask, generator)
             inter.append(self.norm(out))
             attn_all.append(attn)
         return torch.stack(inter), torch.stack(attn_all)  # [L,B,Q,C], [L,B,Q,S]
@@ -127,29 +139,30 @@ class Transformer(nn.Module):
     MANO queries."""
 
     def __init__(self, d_model=256, nhead=4, num_encoder_layers=6,
-                 num_decoder_layers=4, dim_feedforward=1024):
+                 num_decoder_layers=4, dim_feedforward=1024, dropout=0.0):
         super().__init__()
-        self.encoder = Encoder(d_model, nhead, dim_feedforward, num_encoder_layers)
-        self.decoder = Decoder(d_model, nhead, dim_feedforward, num_decoder_layers)
+        self.encoder = Encoder(d_model, nhead, dim_feedforward, num_encoder_layers, dropout)
+        self.decoder = Decoder(d_model, nhead, dim_feedforward, num_decoder_layers, dropout)
 
     def forward(self, src, pos, query_embed, tgt_mask=None, memory_mask=None,
-                src_mask=None):
-        memory, enc_inter = self.encoder(src + pos, pos, src_mask)
+                src_mask=None, generator=None):
+        memory, enc_inter = self.encoder(src + pos, pos, src_mask, generator)
         query = query_embed[None].expand(src.shape[0], -1, -1).to(src.dtype)
         hs, attn_wts = self.decoder(torch.zeros_like(query), memory, pos, query,
-                                    tgt_mask, memory_mask)
+                                    tgt_mask, memory_mask, generator)
         return hs, memory, enc_inter, attn_wts
 
 
 class VoteTransformer(nn.Module):
     """Object transformer: encoder only."""
 
-    def __init__(self, d_model=256, nhead=4, num_encoder_layers=3, dim_feedforward=1024):
+    def __init__(self, d_model=256, nhead=4, num_encoder_layers=3, dim_feedforward=1024,
+                 dropout=0.0):
         super().__init__()
-        self.encoder = Encoder(d_model, nhead, dim_feedforward, num_encoder_layers)
+        self.encoder = Encoder(d_model, nhead, dim_feedforward, num_encoder_layers, dropout)
 
-    def forward(self, src, pos, src_mask=None):
-        return self.encoder(src + pos, pos, src_mask)
+    def forward(self, src, pos, src_mask=None, generator=None):
+        return self.encoder(src + pos, pos, src_mask, generator)
 
 
 def get_mano_tgt_mask(num_queries: int = 17, shape_idx: int = 16) -> torch.Tensor:

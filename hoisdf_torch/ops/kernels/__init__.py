@@ -8,7 +8,7 @@ went through the kernels.
 
 from typing import Dict
 
-launch_counts: Dict[str, int] = {"sdf_mlp": 0, "gather_lerp": 0}
+launch_counts: Dict[str, int] = {"sdf_mlp": 0, "gather_lerp": 0, "gather_lerp_bwd": 0}
 
 
 def reset_launch_counts() -> None:

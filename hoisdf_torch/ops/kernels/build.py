@@ -104,5 +104,7 @@ def library() -> ctypes.CDLL:
             lib.sdf_mlp_launch.restype = i
             lib.gather_lerp_launch.argtypes = [vp, i, i, i, vp, vp, i, vp, vp]
             lib.gather_lerp_launch.restype = i
+            lib.gather_lerp_bwd_launch.argtypes = [vp, vp, i, i, i, vp, i, vp, vp]
+            lib.gather_lerp_bwd_launch.restype = i
             _lib = lib
         return _lib

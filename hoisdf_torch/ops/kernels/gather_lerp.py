@@ -1,17 +1,21 @@
-"""Multi-level bilinear feature gather: the CUDA kernel ``csrc/gather_lerp.cu``
-and its plain PyTorch version.
+"""Multi-level bilinear feature gather and its backward: the CUDA kernels of
+``csrc/gather_lerp.cu`` and their plain PyTorch versions.
 
-Counterpart of ``hoisdf_tpu/ops/pallas/gather_lerp.py::fused_gather_lerp3``,
-widened to the whole pyramid, and of the gather-and-lerp of
+The forward is the counterpart of
+``hoisdf_tpu/ops/pallas/gather_lerp.py::fused_gather_lerp3``, widened to the
+whole pyramid, and of the gather-and-lerp of
 ``hoisdf_tpu/ops/grid_sample.py::grid_sample_bilinear``: torch
 ``grid_sample(padding_mode="border", align_corners=True)`` semantics on NHWC
-maps, lerp in f32, result in the maps' type.  Forward only.
+maps, lerp in f32, result in the maps' type.  The backward is
+``grid_sample.py::_gsb_fast_bwd``: the 4-corner scatter-add of the output
+gradient into d/dfeat, accumulated in f32, and no gradient for the grid (every
+caller samples at a detached grid).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -29,18 +33,12 @@ def grid_sample_bilinear(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor
     to size-1 (align_corners); out-of-range coordinates clamp to the border
     before the corners are taken."""
     b, h, w, c = feat.shape
-    x = torch.clamp((grid[..., 0] + 1.0) * 0.5 * (w - 1), 0.0, w - 1)
-    y = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (h - 1), 0.0, h - 1)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    x1 = torch.clamp(x0 + 1, max=w - 1)
-    y1 = torch.clamp(y0 + 1, max=h - 1)
-    wx = (x - x0)[..., None]
-    wy = (y - y0)[..., None]
+    x0, x1, y0, y1, wx, wy = _corners(grid, h, w)
+    wx, wy = wx[..., None], wy[..., None]
     flat = feat.reshape(b, h * w, c)
 
     def corner(yi, xi):
-        idx = (yi.long() * w + xi.long())[..., None].expand(-1, -1, c)
+        idx = (yi * w + xi)[..., None].expand(-1, -1, c)
         return torch.gather(flat, 1, idx).float()
 
     top = corner(y0, x0) * (1 - wx) + corner(y0, x1) * wx
@@ -48,28 +46,131 @@ def grid_sample_bilinear(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor
     return (top * (1 - wy) + bot * wy).to(feat.dtype)
 
 
+def _corners(grid: torch.Tensor, h: int, w: int):
+    """Corner indices (long) and lerp weights of ``grid`` [B,P,2] on an
+    h x w map: x0, x1, y0, y1, wx, wy, each [B,P]."""
+    x = torch.clamp((grid[..., 0] + 1.0) * 0.5 * (w - 1), 0.0, w - 1)
+    y = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (h - 1), 0.0, h - 1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    x1 = torch.clamp(x0 + 1, max=w - 1)
+    y1 = torch.clamp(y0 + 1, max=h - 1)
+    return x0.long(), x1.long(), y0.long(), y1.long(), x - x0, y - y0
+
+
 def gather_lerp_plain(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> torch.Tensor:
     """Per-level bilinear sample, channel-concatenated: [B, P, sum C]."""
     return torch.cat([grid_sample_bilinear(f, grid) for f in feats], dim=-1)
 
 
+def gather_lerp_bwd_plain(grid: torch.Tensor, g: torch.Tensor,
+                          shapes: Sequence[Tuple[int, int, int]], dtype: torch.dtype
+                          ) -> List[torch.Tensor]:
+    """d/dfeat of :func:`gather_lerp_plain` for the output gradient ``g``
+    [B,P,sum C]: per level (H, W, C) of ``shapes``, the 4-corner
+    ``index_add_`` of g * weight into an f32 [B,H,W,C], cast to ``dtype``."""
+    b, p = grid.shape[:2]
+    out, off = [], 0
+    bidx = torch.arange(b, device=grid.device)[:, None]
+    for h, w, c in shapes:
+        x0, x1, y0, y1, wx, wy = _corners(grid, h, w)
+        gl = g[..., off:off + c].float()
+        acc = torch.zeros(b * h * w, c, dtype=torch.float32, device=grid.device)
+        for yi, xi, wgt in ((y0, x0, (1 - wx) * (1 - wy)), (y0, x1, wx * (1 - wy)),
+                            (y1, x0, (1 - wx) * wy), (y1, x1, wx * wy)):
+            idx = (bidx * (h * w) + yi * w + xi).reshape(-1)
+            acc.index_add_(0, idx, (gl * wgt[..., None]).reshape(-1, c))
+        out.append(acc.reshape(b, h, w, c).to(dtype))
+        off += c
+    return out
+
+
+def _check_grid(grid: torch.Tensor, name: str) -> Tuple[int, int]:
+    if grid.dtype != torch.float32 or grid.dim() != 3 or grid.shape[-1] != 2 \
+            or not grid.is_contiguous():
+        raise ValueError(f"{name}: grid must be contiguous f32 [B,P,2], got "
+                         f"{grid.dtype} {tuple(grid.shape)}")
+    b, p, _ = grid.shape
+    if b > 65535:  # images ride the launch grid's y axis
+        raise ValueError(f"{name}: batch {b} exceeds 65535")
+    return b, p
+
+
+def gather_lerp_bwd(grid: torch.Tensor, g: torch.Tensor,
+                    shapes: Sequence[Tuple[int, int, int]], dtype: torch.dtype
+                    ) -> List[torch.Tensor]:
+    """The backward of :func:`gather_lerp`: d/dfeat of every level (H, W, C)
+    of ``shapes`` for the output gradient ``g`` [B,P,sum C], in ``dtype``.
+    CPU tensors take :func:`gather_lerp_bwd_plain`; on the card one launch of
+    the backward kernel adds into a zeroed f32 buffer (f32 atomics, so the
+    result is not bitwise repeatable), which is then cast to ``dtype``."""
+    if grid.device.type == "cpu":
+        return gather_lerp_bwd_plain(grid, g, shapes, dtype)
+    if grid.device.type != "cuda":
+        raise ValueError(f"gather_lerp_bwd: unsupported device {grid.device}")
+    if not 1 <= len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"gather_lerp_bwd: takes 1 to {MAX_LEVELS} levels, got {len(shapes)}")
+    b, p = _check_grid(grid, "gather_lerp_bwd")
+    c_total = sum(s[2] for s in shapes)
+    if g.device != grid.device or g.dtype not in _DTYPES or tuple(g.shape) != (b, p, c_total) \
+            or not g.is_contiguous():
+        raise ValueError(f"gather_lerp_bwd: g must be a contiguous f32 or bf16 [{b},{p},"
+                         f"{c_total}] on {grid.device}, got {g.dtype} {tuple(g.shape)} "
+                         f"on {g.device}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"gather_lerp_bwd: map dtype {dtype} not in {list(_DTYPES)}")
+    sizes = [b * h * w * c for h, w, c in shapes]
+    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=grid.device)
+    if b * p > 0:
+        lib = library()
+        dims = (ctypes.c_int * (3 * len(shapes)))(*[d for s in shapes for d in s])
+        with torch.cuda.device(grid.device):
+            stream = torch.cuda.current_stream(grid.device).cuda_stream
+            rc = lib.gather_lerp_bwd_launch(grid.data_ptr(), g.data_ptr(), b, p, len(shapes),
+                                            dims, _DTYPES[g.dtype], acc.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"gather_lerp_bwd kernel launch failed with CUDA error {rc}")
+        launch_counts["gather_lerp_bwd"] += 1
+    return [a.view(b, *s).to(dtype) for a, s in zip(torch.split(acc, sizes), shapes)]
+
+
+class _GatherLerp(torch.autograd.Function):
+    """gather_lerp with d/dfeat by :func:`gather_lerp_bwd`; the grid comes
+    in detached and gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, grid, *feats):
+        ctx.save_for_backward(grid)
+        ctx.shapes = [tuple(f.shape[1:]) for f in feats]
+        ctx.dtype = feats[0].dtype
+        return _gather_lerp_forward(grid, feats)
+
+    @staticmethod
+    def backward(ctx, g):
+        (grid,) = ctx.saved_tensors
+        dfeats = gather_lerp_bwd(grid, g.contiguous(), ctx.shapes, ctx.dtype)
+        return (None, *[d if need else None
+                        for d, need in zip(dfeats, ctx.needs_input_grad[1:])])
+
+
 def gather_lerp(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> torch.Tensor:
     """Bilinear-sample up to five NHWC levels at ``grid`` [B,P,2] (f32) and
     channel-concatenate -> [B, P, sum C] in the maps' type (f32 or bf16).
-    CPU tensors take :func:`gather_lerp_plain`."""
+    CPU tensors take :func:`gather_lerp_plain`.  Differentiable in the maps
+    (backward :func:`gather_lerp_bwd`); the grid is detached."""
+    if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
+        return _GatherLerp.apply(grid.detach(), *feats)
+    return _gather_lerp_forward(grid, feats)
+
+
+def _gather_lerp_forward(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> torch.Tensor:
     if grid.device.type == "cpu":
         return gather_lerp_plain(grid, feats)
     if grid.device.type != "cuda":
         raise ValueError(f"gather_lerp: unsupported device {grid.device}")
     if not 1 <= len(feats) <= MAX_LEVELS:
         raise ValueError(f"gather_lerp: takes 1 to {MAX_LEVELS} levels, got {len(feats)}")
-    if grid.dtype != torch.float32 or grid.dim() != 3 or grid.shape[-1] != 2 \
-            or not grid.is_contiguous():
-        raise ValueError(f"gather_lerp: grid must be contiguous f32 [B,P,2], got "
-                         f"{grid.dtype} {tuple(grid.shape)}")
-    b, p, _ = grid.shape
-    if b > 65535:  # images ride the launch grid's y axis
-        raise ValueError(f"gather_lerp: batch {b} exceeds 65535")
+    b, p = _check_grid(grid, "gather_lerp")
     dtype = feats[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"gather_lerp: map dtype {dtype} not in {list(_DTYPES)}")

@@ -1,19 +1,23 @@
-"""Lossless uint8 wire codec for host->device image transfer
-(``hoisdf_tpu/ops/wire.py``, input side).
+"""Lossless uint8 wire codec for host->device transfer
+(``hoisdf_tpu/ops/wire.py``).
 
 Every image value is a uint8 byte divided by 255 on the host.  Shipping the
 byte and rebuilding the f32 value on the card through a 256-entry table
 computed on the host with numpy's own ``v/255`` rounding reproduces the host
 normalize bit for bit (a device-side divide may be 1 ulp off), at a quarter of
-the transfer bytes.
+the transfer bytes.  The train targets' binary seg masks ride as u8 {0, 1}
+and are cast back on the card; a mask that is not exactly binary stays f32.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+# Target keys that are binary masks (f32 {0,1} on the host).
+_BINARY_MASK_KEYS = ("hand_seg", "obj_seg")
 
 
 def u8_lut_np() -> np.ndarray:
@@ -28,6 +32,43 @@ def quantize_image_u8(img) -> np.ndarray:
     if img.dtype == np.uint8:
         return img
     return np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+
+
+def encode_inputs(inputs: Dict) -> Dict:
+    """Host side: the image batch as u8 wire bytes."""
+    if "img" not in inputs:
+        return inputs
+    return dict(inputs, img=quantize_image_u8(inputs["img"]))
+
+
+def encode_targets(targets: Dict) -> Dict:
+    """Host side: binary {0,1} masks -> u8.  A mask that is not exactly
+    binary is left in f32 (never silently quantized)."""
+    out = dict(targets)
+    for k in _BINARY_MASK_KEYS:
+        v = out.get(k)
+        if v is None:
+            continue
+        v = np.asarray(v)
+        if v.dtype != np.uint8 and ((v == 0.0) | (v == 1.0)).all():
+            out[k] = v.astype(np.uint8)
+    return out
+
+
+def encode_batch(inputs: Dict, targets: Optional[Dict] = None
+                 ) -> Tuple[Dict, Optional[Dict]]:
+    """Host side: an (inputs, targets) pair for the u8 wire."""
+    return encode_inputs(inputs), (None if targets is None else encode_targets(targets))
+
+
+def decode_targets(targets: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Device side: u8 binary masks -> f32."""
+    out = dict(targets)
+    for k in _BINARY_MASK_KEYS:
+        v = out.get(k)
+        if v is not None and v.dtype == torch.uint8:
+            out[k] = v.float()
+    return out
 
 
 def decode_inputs(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

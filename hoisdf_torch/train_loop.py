@@ -1,0 +1,197 @@
+"""Training entry point of the port (``hoisdf_tpu/train_loop.py``), on the
+synthetic data path, in one process.
+
+The epoch loop of the original's ``main/train.py``: the host-side branch gate
+(presampled or field-guided points) and jitter distance per step, the stepped
+learning rate, the u8 train wire (``--cfg transfer_dtype=uint8``), per-step
+loss logging with speed, scalars every 400 iterations, a finite-loss check
+that reads each step's loss a few steps late (so the host does not wait on the
+card every step), a snapshot every 5 epochs (every epoch after the
+point-sampling switch, and the last), and ``--continue`` from the latest
+snapshot.
+
+Not ported yet: the real-data loaders, the per-epoch evaluation and its debug
+images, ``--backbone-init`` (the ImageNet graft), ``--zero`` and
+``--multihost``.
+
+Usage:
+    python -m hoisdf_torch.train_loop --setting dexycb --run_dir_name demo \\
+        --synthetic --end_epoch 2 --iters-per-epoch 4 --batch-size 2 [--cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from hoisdf_torch.config import SYNTHETIC_TINY_OVERRIDES, get_config, parse_cfg_overrides
+from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
+from hoisdf_torch.mano.layer import ManoBuffers
+from hoisdf_torch.mano.model import load_mano_npz, make_synthetic_mano
+from hoisdf_torch.models.hoisdf import build_model
+from hoisdf_torch.ops import wire
+from hoisdf_torch.train import create_train_state, make_train_step, presample_gate
+from hoisdf_torch.utils import checkpoint as ckpt_util
+from hoisdf_torch.utils.logger import colorlogger
+from hoisdf_torch.utils.timer import Timer
+
+LOSS_LAG = 4  # steps between a step and the host's read of its loss
+
+
+class ScalarWriter:
+    """Append-only JSONL scalar log (``metrics.jsonl``), mirrored to
+    TensorBoard event files when ``torch.utils.tensorboard`` imports."""
+
+    def __init__(self, log_dir: str):
+        os.makedirs(log_dir, exist_ok=True)
+        self._f = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:  # TensorBoard is optional
+            return
+        self._tb = SummaryWriter(os.path.join(log_dir, "tb"))
+
+    def add_scalars(self, step: int, scalars: Dict[str, float]) -> None:
+        self._f.write(json.dumps({"step": step, **{k: float(v) for k, v in scalars.items()}})
+                      + "\n")
+        self._f.flush()
+        if self._tb is not None:
+            for k, v in scalars.items():
+                self._tb.add_scalar(k, float(v), step)
+
+    def close(self) -> None:
+        self._f.close()
+        if self._tb is not None:
+            self._tb.close()
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--setting", default="dexycb")
+    p.add_argument("--run_dir_name", default="run")
+    p.add_argument("--continue", dest="continue_train", action="store_true")
+    p.add_argument("--end_epoch", type=int, default=None)
+    p.add_argument("--point_sampling_epoch", type=int, default=None)
+    p.add_argument("--lr_drop", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic batches at the tiny model size (the only data path "
+                        "ported so far)")
+    p.add_argument("--iters-per-epoch", type=int, default=None)
+    p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--cfg", action="append", default=[], metavar="KEY=VALUE",
+                   help="config field override (repeatable); VALUE is JSON with a "
+                        "plain-string fallback")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    if not args.synthetic:
+        raise SystemExit("train_loop: the real-data loaders are not ported; pass --synthetic")
+    overrides = dict(SYNTHETIC_TINY_OVERRIDES)
+    for key, value in (("end_epoch", args.end_epoch),
+                       ("point_sampling_epoch", args.point_sampling_epoch),
+                       ("lr_drop", args.lr_drop), ("train_batch_size", args.batch_size)):
+        if value is not None:
+            overrides[key] = value
+    overrides.update(parse_cfg_overrides(args.cfg))
+    cfg = get_config(args.setting, **overrides)
+    device = torch.device("cpu" if args.cpu else "cuda")
+
+    out_root = os.path.join(cfg.output_dir, args.run_dir_name)
+    log_dir = os.path.join(out_root, "log")
+    model_dir = os.path.join(out_root, "model_dump")
+    os.makedirs(model_dir, exist_ok=True)
+    logger = colorlogger(log_dir, "train_logs.txt")
+    writer = ScalarWriter(os.path.join(out_root, "tensorboard"))
+    with open(os.path.join(log_dir, "cfg.txt"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+    with open(os.path.join(log_dir, "args.txt"), "w") as f:
+        json.dump(vars(args), f, indent=2)
+
+    mano_model = (load_mano_npz(cfg.mano_model_path) if cfg.mano_model_path
+                  else make_synthetic_mano(0))
+    mano = ManoBuffers.from_model(mano_model)
+    iters_per_epoch = args.iters_per_epoch or 8
+
+    def batches(epoch):
+        for i in range(iters_per_epoch):
+            yield synthetic_batch(cfg, cfg.train_batch_size, seed=epoch * 10000 + i, train=True)
+
+    state = create_train_state(cfg, build_model(cfg, cfg.seed), iters_per_epoch, device=device)
+    start_epoch = 0
+    if args.continue_train:
+        resumed = ckpt_util.restore_snapshot(model_dir, state)
+        if resumed is not None:
+            start_epoch = resumed + 1
+            logger.info(f"resumed from epoch {resumed}")
+    train_step = make_train_step(cfg, mano, device=device)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+    host_rng = np.random.default_rng(cfg.seed + 2)
+    tot_timer, step_timer = Timer(), Timer()
+    loss_window: "collections.deque" = collections.deque()
+    total = float("nan")
+
+    def check_finite(l_epoch, l_itr, l_losses) -> float:
+        """Read a lagged step's losses; on a non-finite total, save the state
+        (after the update, up to LOSS_LAG steps past the fault) and stop."""
+        t = float(l_losses["total"])
+        if np.isfinite(t):
+            return t
+        crash = {k: float(v) for k, v in l_losses.items()}
+        logger.error(f"non-finite loss at epoch {l_epoch} itr {l_itr} "
+                     f"(read {LOSS_LAG} steps late): {crash}")
+        crash_dir = os.path.join(model_dir, "crash_postupdate_diagnostic")
+        ckpt_util.save_snapshot(crash_dir, l_epoch, state)
+        with open(os.path.join(crash_dir, "CRASH.json"), "w") as f:
+            json.dump({"epoch": l_epoch, "itr": l_itr, "losses": crash,
+                       "note": f"state saved after the update, up to {LOSS_LAG} steps past "
+                               "the fault; resume from the last regular snapshot"}, f, indent=2)
+        raise FloatingPointError(f"non-finite training loss: {crash}")
+
+    try:
+        for epoch in range(start_epoch, cfg.end_epoch):
+            for itr, batch_np in enumerate(batches(epoch)):
+                tot_timer.tic()
+                use_pre, dist_range = presample_gate(
+                    cfg, epoch, itr / max(iters_per_epoch, 1), float(host_rng.random()))
+                inputs, targets = split_inputs_targets(batch_np)
+                if cfg.transfer_dtype == "uint8":
+                    inputs, targets = wire.encode_batch(inputs, targets)
+                step_timer.tic()
+                state, losses = train_step(state, inputs, targets, generator, dist_range,
+                                           use_presampled=use_pre)
+                loss_window.append((epoch, itr, losses))
+                if len(loss_window) > LOSS_LAG:
+                    total = check_finite(*loss_window.popleft())
+                step_timer.toc()
+                if itr % 400 == 0:
+                    writer.add_scalars(state.step, {f"train_{k}": v for k, v in losses.items()})
+                tot_timer.toc()
+                logger.info(
+                    "Epoch %d/%d itr %d/%d: speed %.2f(%.2f)s/itr %.2fh/epoch loss[-%d] %.4f"
+                    % (epoch, cfg.end_epoch, itr, iters_per_epoch, tot_timer.average_time,
+                       step_timer.average_time, tot_timer.average_time * iters_per_epoch / 3600,
+                       LOSS_LAG, total))
+            while loss_window:  # epoch boundary: drain the lagged checks
+                total = check_finite(*loss_window.popleft())
+            save_gap = 1 if epoch >= cfg.point_sampling_epoch else 5
+            if epoch % save_gap == 0 or epoch == cfg.end_epoch - 1:
+                ckpt_util.save_snapshot(model_dir, epoch, state)
+                logger.info(f"snapshot saved at epoch {epoch}")
+    finally:
+        writer.close()
+    logger.info("training done")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,11 @@
-"""Probe the PyTorch port's two CUDA kernels on one NVIDIA card.
+"""Probe the PyTorch port's CUDA kernels on one NVIDIA card.
 
     python3 scripts/probe_torch_kernels.py        (from the repository root)
 
 For work on a kernel: builds the kernels and prints ptxas's register counts
 and warnings, runs chip_smoke.py's kernel phase (each kernel against its plain
 version, the SDF MLP at ragged row counts and at the row counts of a serving
-step), then two sweeps that chip_smoke.py does not make: the SDF MLP by tiles
+step, the gather's backward at the largest train launch), then two sweeps that chip_smoke.py does not make: the SDF MLP by tiles
 in flight and the gather by points per image.  One JSON line per result; exits
 non-zero on a mismatch.
 """
@@ -80,6 +80,7 @@ def main():
     dev = torch.device("cuda", 0)
     cs.check_sdf_mlp(dev, batch=22)
     cs.check_gather_lerp(dev, batch=22, points=3584)
+    cs.check_gather_lerp_bwd(dev, batch=22, points=800)
     sweep_sdf_mlp_tiles(dev)
     sweep_gather_points(dev)
     return 0

@@ -1,13 +1,17 @@
 """Kernel B of the PyTorch port (multi-level bilinear gather): its plain
 PyTorch version against the JAX package's Pallas kernel (interpret mode),
-its multi-level gather and the torch grid_sample golden.
+its multi-level gather and the torch grid_sample golden; its backward
+(autograd through the plain route) against ``jax.vjp`` of the JAX package's
+multi-level gather on the grad path.
 
 Grids are drawn from ``rand * 2.2 - 1.1`` so the border clamp is exercised.
 Tolerance: atol 1e-5 in f32 (the JAX package takes other formulations for
 small levels, e.g. one-hot matmuls); 1e-2 for bf16 maps, whose result the port
-rounds to bf16.
+rounds to bf16.  Gradients: 2e-5 absolute + 1e-5 relative (sums of up to a few
+hundred f32 terms in another order).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +23,12 @@ from hoisdf_torch.ops.grid_sample import (
     pixels_to_grid,
     project_points,
 )
-from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp, gather_lerp_plain
+from hoisdf_torch.ops.kernels.gather_lerp import (
+    gather_lerp,
+    gather_lerp_bwd,
+    gather_lerp_bwd_plain,
+    gather_lerp_plain,
+)
 from hoisdf_tpu.ops import grid_sample as jgs
 from hoisdf_tpu.ops.pallas.gather_lerp import fused_gather_lerp3
 
@@ -94,6 +103,107 @@ def test_projection_and_grid_match_jax():
                                          (256, 256)))
     got = pixels_to_grid(project_points(torch.from_numpy(pts), torch.from_numpy(k)), (256, 256))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+GRAD_TOL = dict(atol=2e-5, rtol=1e-5)
+
+
+def _border_grid(b, p, seed=6):
+    """Random points, the four corners, points on each edge and points
+    beyond it (clamped to the border)."""
+    grid = _grid(b, p, seed)
+    grid[:, :8] = [[-1, -1], [1, 1], [1, -1], [-1, 1], [1, 0.3], [-0.2, -1], [1.5, 0.1],
+                   [0.4, -2.0]]
+    return grid
+
+
+@pytest.mark.parametrize("levels", [LEVELS5, LEVELS_ODD], ids=["pyramid", "odd"])
+def test_autograd_matches_jax_vjp_on_the_grad_path(levels):
+    """d/dfeat of the port's gather (its autograd Function, plain route on
+    the CPU) against jax.vjp of multiscale_point_features with
+    slice_gather=False: the custom-VJP 4-corner scatter (_gsb_fast_bwd) on
+    the large levels, autodiff of the one-hot matmul on the small ones.  The
+    grid gets no gradient on either side (the JAX package stops it at the
+    call, as its model does)."""
+    maps = _maps(3, levels, seed=7)
+    grid = _border_grid(3, 257)
+    names = list(levels)
+    c_total = sum(d[2] for d in levels.values())
+    g = np.random.RandomState(8).randn(3, 257, c_total).astype(np.float32)
+
+    def f(m, gr):
+        return jgs.multiscale_point_features(m, jax.lax.stop_gradient(gr), names,
+                                             slice_gather=False)
+
+    _, vjp = jax.vjp(f, {k: jnp.asarray(v) for k, v in maps.items()}, jnp.asarray(grid))
+    want_maps, want_grid = vjp(jnp.asarray(g))
+    assert not np.asarray(want_grid).any()
+
+    tmaps = {k: torch.from_numpy(v).requires_grad_() for k, v in maps.items()}
+    tgrid = torch.from_numpy(grid).requires_grad_()
+    out = multiscale_point_features(tmaps, tgrid, names)
+    out.backward(torch.from_numpy(g))
+    assert tgrid.grad is None
+    for k in names:
+        np.testing.assert_allclose(tmaps[k].grad.numpy(), np.asarray(want_maps[k]),
+                                   err_msg=k, **GRAD_TOL)
+
+
+def test_bwd_plain_matches_jax_gsb_fast_bwd_and_casts_to_the_maps_type():
+    maps = _maps(2, {"a": (16, 16, 8)}, seed=9)
+    feat = jnp.asarray(maps["a"])
+    grid = _border_grid(2, 300)
+    g = np.random.RandomState(10).randn(2, 300, 8).astype(np.float32)
+    (want, dgrid) = jgs._gsb_fast_bwd((feat, jnp.asarray(grid)), jnp.asarray(g))
+    assert not np.asarray(dgrid).any()
+    (got,) = gather_lerp_bwd(torch.from_numpy(grid), torch.from_numpy(g), [(16, 16, 8)],
+                             torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+    (got16,) = gather_lerp_bwd(torch.from_numpy(grid), torch.from_numpy(g), [(16, 16, 8)],
+                               torch.bfloat16)
+    assert got16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got16.float().numpy(), got.bfloat16().float().numpy())
+
+
+def test_gather_outside_autograd_records_no_graph():
+    maps = [torch.from_numpy(m).requires_grad_() for m in _maps(1, LEVELS5).values()]
+    grid = torch.from_numpy(_grid(1, 9))
+    with torch.no_grad():
+        assert gather_lerp(grid, maps).grad_fn is None
+    assert gather_lerp(grid, maps).grad_fn is not None
+
+
+def _clustered_grid(b, p, seed=11):
+    """Points packed into a few cells, as the cascade's selections are."""
+    rng = np.random.RandomState(seed)
+    centres = rng.rand(b, 4, 2) * 1.6 - 0.8
+    pick = rng.randint(0, 4, (b, p))
+    grid = np.take_along_axis(centres, pick[..., None], axis=1) + rng.randn(b, p, 2) * 0.02
+    return grid.astype(np.float32)
+
+
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA card")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grid_kind", ["uniform", "clustered", "border"])
+@pytest.mark.parametrize("levels", [LEVELS5, LEVELS_ODD], ids=["vector", "scalar"])
+def test_bwd_kernel_matches_plain_on_card(levels, grid_kind, dtype):
+    """The backward kernel (f32 atomics, so not bitwise repeatable) against
+    its plain version: scaled error 1e-5 in f32; bf16 results within one
+    bf16 rounding (2^-8 relative) of the plain version's."""
+    b, p = 3, 700
+    grid = {"uniform": _grid, "clustered": _clustered_grid, "border": _border_grid}[grid_kind](b, p)
+    grid = torch.from_numpy(grid).cuda()
+    shapes = [tuple(d) for d in levels.values()]
+    c_total = sum(s[2] for s in shapes)
+    g = torch.randn(b, p, c_total, generator=torch.Generator().manual_seed(12)).to("cuda", dtype)
+    got = gather_lerp_bwd(grid, g, shapes, dtype)
+    torch.cuda.synchronize()
+    want = gather_lerp_bwd_plain(grid, g, shapes, dtype)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        scale = max(w.float().abs().max().item(), 1.0)
+        tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+        assert (a.float() - w.float()).abs().max().item() <= tol * scale
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA card")

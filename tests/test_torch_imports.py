@@ -20,6 +20,11 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "hoisdf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("train.py", "train_loop.py", "losses.py", "ops/heatmap.py",
+                   "models/initializers.py", "utils/checkpoint.py", "utils/logger.py",
+                   "utils/timer.py"):
+        assert f"hoisdf_torch/{module}" in names, module
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -116,10 +116,10 @@ def test_resnet50_and_decoder_golden(golden):
 
 def test_sdf_decoder_golden(golden):
     g = golden("sdf_decoder")
-    dec = PortSDFDecoder(256, 33)
+    dec = PortSDFDecoder(256, 33).eval()
     dec.load_state_dict({k: T(g[k]) for k in g.files if k.startswith("linh")}, strict=True)
     with torch.no_grad():
-        np.testing.assert_allclose(dec(T(g["x"])).numpy(), g["sdf"], atol=2e-5)
+        np.testing.assert_allclose(dec(T(g["x"]))[0].numpy(), g["sdf"], atol=2e-5)
 
 
 def test_mlp_and_attention_weight_match_jax():

@@ -40,7 +40,7 @@ def _decoders(latent_size):
     params = jax.tree_util.tree_map(
         lambda v: np.asarray(v) + rng.randn(*v.shape).astype(np.float32) * 0.05,
         params["params"])
-    port = PortSDFDecoder(latent_size, 33)
+    port = PortSDFDecoder(latent_size, 33).eval()
     with torch.no_grad():
         for i in range(4):
             lin = getattr(port, f"linh{i}")
@@ -84,7 +84,7 @@ def test_plain_matches_pallas_interpret_and_reference(decoders, n):
     for want in (want_kernel, want_ref, want_flax):
         np.testing.assert_allclose(got, want, atol=ATOL_F32)
     # the port's decoder module computes the same function
-    np.testing.assert_allclose(port(torch.from_numpy(x)).detach().numpy(), got,
+    np.testing.assert_allclose(port(torch.from_numpy(x))[0].detach().numpy(), got,
                                atol=ATOL_F32)
 
 
