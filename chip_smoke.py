@@ -18,7 +18,8 @@ Phases, each printing one JSON line:
              f32 at the same eight row counts (the field-guided train step's
              launches).  The gather's backward is checked at the train step's
              largest launch, f32 and bf16 maps, on a uniform, a clustered
-             and a border grid.
+             and a border grid; its byte bound counts g and the grid read
+             and d/dfeat written once (its f32 zero-fill is printed beside).
 3. forward - the full-width dexycb eval forward, batch 2, f32 with TF32 off:
              card (through the kernels) against CPU (plain versions), with
              drawn SDF decoder biases.
@@ -30,8 +31,11 @@ Phases, each printing one JSON line:
              the port's make_train_step: presampled and field-guided steps
              (branches forced through presample_gate), median ms per step,
              peak memory, per-step launches of each kernel (counts zeroed
-             just before each branch's timed steps), finite losses, and a
-             torch.profiler breakdown of one field-guided step.
+             just before each branch's timed steps), finite losses, a
+             torch.profiler breakdown of one field-guided step, and the
+             gather's backward held and timed on the grids and gradients of
+             one field-guided step's launches (the kernels line quotes its
+             largest).  TF32 stays off, as the port's entry points set it.
 6. train_check - one presampled train step on the card against the CPU at
              full width, batch 2, f32, TF32 off, dropout off, no jitter:
              every loss and the gradient norm of every parameter group.
@@ -295,17 +299,77 @@ def _bwd_grid(kind: str, batch: int, points: int, g):
                        torch.stack([free[..., 0], edge[..., 1]], -1))
 
 
+def time_gather_lerp_bwd(grid, grad, shapes, dtype):
+    """The gather's backward on these inputs: the kernel's time, its plain
+    version's, grid_sample's backward x5 through autograd, and the kernel on
+    the fine levels (0-2) and the coarse levels (3-4) alone.  The bound
+    counts what the function must move: g and the grid read once, d/dfeat
+    written once in the maps' type.  The kernel also zero-fills an f32
+    accumulator for d/dfeat, a cost of its atomic design and not of the
+    function: its bytes are printed beside the bound, not in it."""
+    import torch
+    import torch.nn.functional as F
+
+    from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp_bwd, gather_lerp_bwd_plain
+
+    batch, size = grid.shape[0], torch.finfo(dtype).bits // 8
+    maps = [torch.zeros(batch, h, w, c, device=grid.device, requires_grad=True)
+            for h, w, c in shapes]
+    out = torch.cat([F.grid_sample(
+        m.permute(0, 3, 1, 2), grid[:, None], mode="bilinear",
+        padding_mode="border", align_corners=True)[:, :, 0] for m in maps], 1)
+    grad_nchw = grad.float().permute(0, 2, 1).contiguous()
+
+    def library():  # grid_sample's backward x5 through autograd
+        return torch.autograd.grad(out, maps, grad_nchw, retain_graph=True)
+
+    c_fine = sum(c for _, _, c in shapes[:3])
+    grad_fine = grad[..., :c_fine].contiguous()
+    grad_coarse = grad[..., c_fine:].contiguous()
+    dfeat = sum(batch * h * w * c for h, w, c in shapes)
+    nbytes = grad.numel() * grad.element_size() + grid.numel() * 4 + dfeat * size
+    # per g value and corner: a weight product and an add
+    b_ms, b_by = bound(8.0 * grad.numel(), H100_F32_FLOPS, nbytes)
+    return {"ms": time_ms(lambda: gather_lerp_bwd(grid, grad, shapes, dtype)),
+            "plain_ms": time_ms(lambda: gather_lerp_bwd_plain(grid, grad, shapes, dtype),
+                                iters=3),
+            "library_ms": time_ms(library, iters=3),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
+            "zero_fill_bytes": dfeat * 4,
+            "ms_levels_0_2": time_ms(lambda: gather_lerp_bwd(grid, grad_fine, shapes[:3], dtype)),
+            "ms_levels_3_4": time_ms(lambda: gather_lerp_bwd(grid, grad_coarse, shapes[3:],
+                                                             dtype))}
+
+
+def bwd_error(grid, grad, shapes, dtype):
+    """The backward kernel against its plain version: the largest absolute
+    error, and the largest error scaled by max(1, the largest |d/dfeat|)."""
+    import torch
+
+    from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp_bwd, gather_lerp_bwd_plain
+
+    got = gather_lerp_bwd(grid, grad, shapes, dtype)
+    torch.cuda.synchronize()
+    want = gather_lerp_bwd_plain(grid, grad, shapes, dtype)
+    abs_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+    scaled = max((a.float() - w.float()).abs().max().item()
+                 / max(w.float().abs().max().item(), 1.0) for a, w in zip(got, want))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    return abs_err, scaled, finite
+
+
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+
+
 def check_gather_lerp_bwd(device, batch: int, points: int, seed: int = 2):
     """The gather's backward kernel against its plain version (the 4-corner
     index_add_) at the train step's largest launch, f32 and bf16 maps, on a
     uniform, a clustered and a border grid.  The kernel adds with f32 atomics
     in no fixed order: f32 results must agree within 1e-5 of the largest
     |d/dfeat| (or 1e-5 absolute below 1), bf16 results within one bf16
-    rounding (2^-8 relative)."""
+    rounding (2^-8 relative).  The uniform and the clustered grid are timed
+    in f32; the train phase times the kernel on a train step's own grid."""
     import torch
-    import torch.nn.functional as F
-
-    from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp_bwd, gather_lerp_bwd_plain
 
     g = torch.Generator().manual_seed(seed)
     shapes = [(s, s, c) for _, s, c in PYRAMID]
@@ -314,59 +378,23 @@ def check_gather_lerp_bwd(device, batch: int, points: int, seed: int = 2):
     timed, errs = {}, {}
     for kind in ("uniform", "clustered", "border"):
         grid = _bwd_grid(kind, batch, points, g).to(device).contiguous()
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -8)):
-            grad = grad32.to(dtype)
-            got = gather_lerp_bwd(grid, grad, shapes, dtype)
-            torch.cuda.synchronize()
-            want = gather_lerp_bwd_plain(grid, grad, shapes, dtype)
-            abs_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
-            err = max((a.float() - w.float()).abs().max().item()
-                      / max(w.float().abs().max().item(), 1.0) for a, w in zip(got, want))
-            ok = all(bool(torch.isfinite(a).all()) for a in got) and err <= tol
-            errs[f"{kind}/{str(dtype)[6:]}"] = abs_err
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            abs_err, err, finite = bwd_error(grid, grad32.to(dtype), shapes, dtype)
+            ok = finite and err <= BWD_TOL[name]
+            errs[f"{kind}/{name}"] = abs_err
             res = {"phase": "kernel", "kernel": "gather_lerp_bwd", "grid": kind,
                    "batch": batch, "points": points, "channels": c_total,
-                   "dtype": str(dtype)[6:], "max_abs_err": abs_err, "max_scaled_err": err,
-                   "tol_scaled": tol, "ok": ok}
+                   "dtype": name, "max_abs_err": abs_err, "max_scaled_err": err,
+                   "tol_scaled": BWD_TOL[name], "ok": ok}
             if kind != "border" and dtype == torch.float32:
-                size = 4
-                maps = [torch.zeros(batch, h, w, c, device=device, requires_grad=True)
-                        for h, w, c in shapes]
-                out = torch.cat([F.grid_sample(
-                    m.permute(0, 3, 1, 2), grid[:, None], mode="bilinear",
-                    padding_mode="border", align_corners=True)[:, :, 0] for m in maps], 1)
-                grad_nchw = grad.permute(0, 2, 1).contiguous()
-
-                def library():  # grid_sample's backward x5 through autograd
-                    return torch.autograd.grad(out, maps, grad_nchw, retain_graph=True)
-
-                c_fine = sum(c for _, _, c in shapes[:3])
-                grad_fine = grad[..., :c_fine].contiguous()
-                grad_coarse = grad[..., c_fine:].contiguous()
-                acc_bytes = sum(batch * h * w * c for h, w, c in shapes) * 4
-                nbytes = grad.numel() * size + grid.numel() * 4 + acc_bytes \
-                    + acc_bytes // 4 * size
-                # per g value and corner: a weight product and an add
-                b_ms, b_by = bound(8.0 * grad.numel(), H100_F32_FLOPS, nbytes)
-                t = {"ms": time_ms(lambda: gather_lerp_bwd(grid, grad, shapes, dtype)),
-                     "plain_ms": time_ms(lambda: gather_lerp_bwd_plain(grid, grad, shapes, dtype),
-                                         iters=3),
-                     "library_ms": time_ms(library, iters=3),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     # where the time goes: the fine and the coarse levels alone
-                     "ms_levels_0_2": time_ms(lambda: gather_lerp_bwd(
-                         grid, grad_fine, shapes[:3], dtype)),
-                     "ms_levels_3_4": time_ms(lambda: gather_lerp_bwd(
-                         grid, grad_coarse, shapes[3:], dtype))}
-                res.update(t)
-                timed[kind] = t
+                timed[kind] = time_gather_lerp_bwd(grid, grad32, shapes, dtype)
+                res.update(timed[kind])
             emit(res)
             if not ok:
                 raise AssertionError(f"gather_lerp_bwd disagrees with its plain version: {res}")
-    # the kernels line quotes the clustered grid (the cascade's case) and
-    # the largest error over every case
-    return dict(timed["clustered"], ms_uniform=timed["uniform"]["ms"],
-                max_abs_err=max(errs.values()), dtype="float32", err_by_case=errs)
+    return {"ms_clustered": timed["clustered"]["ms"], "ms_uniform": timed["uniform"]["ms"],
+            "max_abs_err": max(errs.values()), "err_by_case": errs}
 
 
 # ---- phase 3: card against CPU ---------------------------------------------
@@ -614,6 +642,58 @@ def _train_parts(cfg, device, seed: int = 0, dropout: bool = True):
                                   device=device)
 
 
+def tf32_on() -> bool:
+    import torch
+
+    return torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+
+
+def capture_bwd_launches(run):
+    """Call ``run`` once and keep the inputs of every launch of the gather's
+    backward (through the module attribute its autograd Function calls)."""
+    from hoisdf_torch.ops.kernels import gather_lerp as module
+
+    kernel, seen = module.gather_lerp_bwd, []
+
+    def keep(grid, g, shapes, dtype):
+        seen.append((grid.clone(), g.clone(), list(shapes), dtype))
+        return kernel(grid, g, shapes, dtype)
+
+    module.gather_lerp_bwd = keep
+    try:
+        run()
+    finally:
+        module.gather_lerp_bwd = kernel
+    return seen
+
+
+def time_bwd_in_step(run, batch_size: int):
+    """The gather's backward on the grids and gradients of one train step:
+    its largest launch (the merged token gather) timed as the kernel line
+    quotes it, each launch's time beside the step profile's, and each held
+    against the plain version."""
+    from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp_bwd
+
+    launches = capture_bwd_launches(run)
+    errs, ms_by_launch = [], []
+    for grid, grad, shapes, dtype in launches:
+        abs_err, err, finite = bwd_error(grid, grad, shapes, dtype)
+        errs.append(abs_err)
+        ms_by_launch.append(time_ms(lambda: gather_lerp_bwd(grid, grad, shapes, dtype)))
+        tol = BWD_TOL[str(dtype)[6:]]
+        if not (finite and err <= tol):
+            raise AssertionError(f"gather_lerp_bwd disagrees with its plain version on a train "
+                                 f"step's launch of {grid.shape[1]} points: {err} > {tol}")
+    grid, grad, shapes, dtype = max(launches, key=lambda a: a[0].shape[1])
+    res = {"phase": "kernel", "kernel": "gather_lerp_bwd", "grid": "field_guided train step",
+           "batch": batch_size, "points": grid.shape[1], "channels": grad.shape[-1],
+           "dtype": str(dtype)[6:], "max_abs_err": max(errs),
+           "points_by_launch": [a[0].shape[1] for a in launches], "ms_by_launch": ms_by_launch,
+           "ms_step": sum(ms_by_launch), **time_gather_lerp_bwd(grid, grad, shapes, dtype)}
+    emit(res)
+    return res
+
+
 def train(cfg, batch_size: int, device, steps: int = 3, seed: int = 0):
     """The main train path: presampled and field-guided steps at full width,
     the branch and the jitter distance from presample_gate (p = 0.0 and 0.9
@@ -640,7 +720,8 @@ def train(cfg, batch_size: int, device, steps: int = 3, seed: int = 0):
     torch.cuda.reset_peak_memory_stats(device)
 
     res = {"phase": "train", "batch": batch_size, "compute_dtype": cfg.compute_dtype,
-           "steps_per_branch": steps, "tf32": False}
+           "steps_per_branch": steps,
+           "tf32": tf32_on()}
     counts_all = {k: 0 for k in launch_counts}
     finite = True
     for name, (pre, dist) in branches.items():
@@ -664,28 +745,34 @@ def train(cfg, batch_size: int, device, steps: int = 3, seed: int = 0):
     res["finite"] = finite
     need = {"presampled": ("gather_lerp", "gather_lerp_bwd"),
             "field_guided": ("sdf_mlp", "gather_lerp", "gather_lerp_bwd")}
-    res["ok"] = finite and all(res[b]["launches_per_step"][k] > 0
-                               for b, keys in need.items() for k in keys)
+    res["ok"] = not res["tf32"] and finite and all(res[b]["launches_per_step"][k] > 0
+                                                   for b, keys in need.items() for k in keys)
     emit(res)
     if not res["ok"]:
-        raise AssertionError("train phase failed: a loss is not finite or a kernel never ran")
+        raise AssertionError("train phase failed: TF32 is on, a loss is not finite or a "
+                             "kernel never ran")
     pre, dist = branches["field_guided"]
     profile_breakdown(lambda: step(state, *batches[0], gen, dist, use_presampled=pre), 1,
                       "train_profile", branch="field_guided", batch=batch_size)
-    return res
+    bwd = time_bwd_in_step(lambda: step(state, *batches[0], gen, dist, use_presampled=pre),
+                           batch_size)
+    return res, bwd
 
 
-def compare_train_step(cfg, batch_size: int, device, seed: int = 0,
-                       loss_tol: float = 1e-4, grad_tol: float = 1e-2):
+SCALAR_GROUPS = ("hand_sigmoid_beta", "obj_sigmoid_beta")
+
+
+def compare_train_step(cfg, batch_size: int, device, seed: int = 0, loss_tol: float = 1e-4,
+                       grad_tol: float = 1e-3, scalar_grad_tol: float = 5e-3):
     """One presampled train step on the card and on the CPU from the same
     seeded weights and inputs, f32, TF32 off, dropout off, no jitter.  Each
     loss must agree within ``loss_tol`` relative (absolute below 1e-3), and
     the gradient norm of each parameter group (the model's top-level
-    modules) within ``grad_tol`` relative.  Sums are taken in another order,
-    and this model's gradients are ill-conditioned: a ReLU whose input lies
-    within rounding of zero switches, and the scalar SDF betas sum many
-    terms that cancel (the port alone, on 1 and on 8 CPU threads, differs
-    by up to 1 % per tensor at the tiny size)."""
+    modules) within ``grad_tol`` relative; the two scalar SDF betas within
+    ``scalar_grad_tol``.  Sums are taken in another order.  A beta's
+    gradient is one sum over every SDF point of terms that cancel, so it
+    keeps fewer bits than a tensor's norm: on the H100 the betas read
+    1.77e-3 and 1.10e-3 in every run, the tensor groups at most 4.14e-4."""
     import math
 
     from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
@@ -706,12 +793,15 @@ def compare_train_step(cfg, batch_size: int, device, seed: int = 0,
     loss_err = {k: abs(loss_d[k] - v) / max(abs(v), 1e-3) for k, v in loss_c.items()}
     grad_err = {k: abs(norm_d[k] - v) / max(v, 1e-12) for k, v in norm_c.items()}
     finite = all(math.isfinite(v) for v in (*loss_d.values(), *norm_d.values()))
-    res = {"phase": "train_check", "batch": batch_size, "dtype": "float32", "tf32": False,
+    res = {"phase": "train_check", "batch": batch_size, "dtype": "float32",
+           "tf32": tf32_on(),
            "dropout": False, "dist_range": 0.0, "losses_card": loss_d, "loss_rel_err": loss_err,
            "loss_tol": loss_tol, "grad_norm_card": norm_d, "grad_norm_rel_err": grad_err,
-           "grad_tol": grad_tol, "finite": finite}
-    res["ok"] = (finite and set(loss_d) == set(loss_c) and max(loss_err.values()) <= loss_tol
-                 and max(grad_err.values()) <= grad_tol)
+           "grad_tol": grad_tol, "scalar_grad_tol": scalar_grad_tol, "finite": finite}
+    res["ok"] = (finite and not res["tf32"] and set(loss_d) == set(loss_c)
+                 and max(loss_err.values()) <= loss_tol
+                 and all(e <= (scalar_grad_tol if k in SCALAR_GROUPS else grad_tol)
+                         for k, e in grad_err.items()))
     emit(res)
     if not res["ok"]:
         raise AssertionError("card and CPU disagree on the train step")
@@ -730,8 +820,6 @@ def main() -> int:
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
 
     info = build.build()
@@ -754,7 +842,7 @@ def main() -> int:
     profile_step(predictor)
     del predictor
 
-    train_res = train(train_cfg, train_cfg.train_batch_size, device)
+    train_res, bwd_step = train(train_cfg, train_cfg.train_batch_size, device)
     compare_train_step(train_cfg, 2, device)
 
     launches, train_launches = serve_res["launches"], train_res["launches"]
@@ -778,10 +866,11 @@ def main() -> int:
         {"name": "gather_lerp_bwd", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_BWD_TPU,
          "launches": train_launches["gather_lerp_bwd"],
-         "max_abs_err": bwd_timed["max_abs_err"], "ms": bwd_timed["ms"],
-         "plain_ms": bwd_timed["plain_ms"], "bound_ms": bwd_timed["bound_ms"],
-         "bound_by": bwd_timed["bound_by"], "library_ms": bwd_timed["library_ms"],
-         "ms_uniform": bwd_timed["ms_uniform"]},
+         "max_abs_err": max(bwd_timed["max_abs_err"], bwd_step["max_abs_err"]),
+         "ms": bwd_step["ms"], "plain_ms": bwd_step["plain_ms"],
+         "bound_ms": bwd_step["bound_ms"], "bound_by": bwd_step["bound_by"],
+         "library_ms": bwd_step["library_ms"], "ms_step": bwd_step["ms_step"],
+         "ms_clustered": bwd_timed["ms_clustered"], "ms_uniform": bwd_timed["ms_uniform"]},
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi, flush=True)

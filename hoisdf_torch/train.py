@@ -44,6 +44,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def disable_tf32() -> None:
+    """The port's precision: ``Config.compute_dtype`` names the one reduced
+    precision the model takes (bf16 in the backbone, pyramid, heads and SDF
+    MLP, for serving); every other op, and every op at "float32" (the
+    preset's, and training's), runs in full f32.  So TF32 is off for cuBLAS
+    and for cuDNN, whose default would run f32 convolutions in TF32.  The
+    flags are process-wide; every entry point (train state, train step, eval
+    step) sets them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def _to_device(arrays: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
     return {k: (torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray)
                 else v).to(dev, non_blocking=True) for k, v in arrays.items()}
@@ -97,6 +109,7 @@ def create_train_state(cfg: Config, model: HOISDF, steps_per_epoch: int = 1000, 
     ``cfg.reference_init`` the decoder, SDF decoders and transformers are
     first re-drawn by the original's train-mode init, from ``cfg.seed``."""
     dev = resolve_device(device)
+    disable_tf32()
     if cfg.reference_init:
         apply_reference_init(model, torch.Generator().manual_seed(cfg.seed + 3))
     model.to(dev)
@@ -162,6 +175,7 @@ def make_train_step(cfg: Config, mano_buffers: ManoBuffers, *, device="cuda"
     (with ``total``) as detached scalars on the device.  The state is updated
     in place."""
     dev = resolve_device(device)
+    disable_tf32()
     mano = mano_buffers.to(dev)
 
     def train_step(state: TrainState, inputs: Mapping, targets: Mapping,
@@ -220,6 +234,7 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
     ``supervise_sdf`` defaults to the DexYCB behaviour (also query the SDF at
     the ground-truth sample points); pass False for serving."""
     dev = resolve_device(device)
+    disable_tf32()
     supervise = cfg.dataset == "dexycb" if supervise_sdf is None else supervise_sdf
     model.to(dev).eval()
     mano = mano_buffers.to(dev)

@@ -339,6 +339,27 @@ def test_reference_init_distributions():
         assert torch.equal(sd[k], sd0[k]), k
 
 
+def test_entry_points_turn_tf32_off():
+    """Every entry point sets the port's precision: no TF32 in cuBLAS or cuDNN,
+    whatever the flags were before."""
+    cfg = configs()[1]
+    mano = ManoBuffers.from_model(make_synthetic_mano(0))
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = [f.allow_tf32 for f in flags]
+    makers = (lambda: ptrain.create_train_state(cfg, build_model(cfg, 0), device="cpu"),
+              lambda: ptrain.make_train_step(cfg, mano, device="cpu"),
+              lambda: ptrain.make_eval_step(cfg, build_model(cfg, 0), mano, device="cpu"))
+    try:
+        for make in makers:
+            for f in flags:
+                f.allow_tf32 = True
+            make()
+            assert not any(f.allow_tf32 for f in flags)
+    finally:
+        for f, b in zip(flags, before):
+            f.allow_tf32 = b
+
+
 def test_checkpoint_round_trip_and_converter(setup, tmp_path):
     """A snapshot in the original layout: read back by the JAX package's
     converter into the same flax trees, and resumed into a fresh state."""
