@@ -10,16 +10,18 @@ Phases, each printing one JSON line:
              and bf16, at the serving shapes, with its time, the plain
              version's time, one stock PyTorch call's time and its bound.
              The SDF MLP is checked at ragged row counts around its tile
-             size, smallest first, and timed in bf16 at each of the eight
-             row counts of a serving step (their sum is step_ms).  Its biases
-             are drawn, and each must move the output by more than the
-             tolerance.  The gather is also timed on its fine levels (0-2)
-             and its coarse levels (3-4) alone.  The SDF MLP is also timed in
-             f32 at the same eight row counts (the field-guided train step's
-             launches).  The gather's backward is checked at the train step's
-             largest launch, f32 and bf16 maps, on a uniform, a clustered
-             and a border grid; its byte bound counts g and the grid read
-             and d/dfeat written once (its f32 zero-fill is printed beside).
+             sizes (32 rows f32, 64 bf16), smallest first, and timed in bf16
+             at each of the eight row counts of a serving step (their sum is
+             step_ms).  Its biases are drawn, and each must move the output
+             by more than the tolerance.  The gather is also timed on its
+             fine levels (0-2) and its coarse levels (3-4) alone.  The SDF
+             MLP is also timed in f32 at the same eight row counts (the
+             field-guided train step's launches; f32_step_ms) and at the
+             largest alone (f32_ms).  The gather's backward is checked at the
+             train step's largest launch, f32 and bf16 maps, on a uniform, a
+             clustered and a border grid, and timed per level group; its byte
+             bound counts g and the grid read and d/dfeat written once (the
+             f32 zero-fill of its global route is printed beside).
 3. forward - the full-width dexycb eval forward, batch 2, f32 with TF32 off:
              card (through the kernels) against CPU (plain versions), with
              drawn SDF decoder biases.
@@ -62,7 +64,8 @@ SDF_TPU = "hoisdf_tpu/ops/pallas/sdf_mlp.py:63"
 # hand field, then the object field.  One serving step launches the SDF MLP
 # once for each, on batch x rows.
 SERVING_ROWS_PER_IMAGE = (512, 1024, 1792, 3584, 512, 832, 1472, 2944)
-RAGGED_ROWS = (1, 63, 64, 65, 127, 128, 129, 255, 257)
+# around the f32 tile (32 rows), 48 rows, and the bf16 tile (64 rows)
+RAGGED_ROWS = (1, 31, 32, 33, 47, 48, 49, 63, 64, 65, 127, 128, 129, 255, 257)
 GATHER_TPU = "hoisdf_tpu/ops/pallas/gather_lerp.py:89"
 GATHER_BWD_TPU = "hoisdf_tpu/ops/grid_sample.py:239"  # _gsb_fast_bwd (a custom VJP)
 
@@ -79,13 +82,21 @@ def smi_line() -> str:
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events).
+    The card first sleeps for longer than the host takes to enqueue the calls
+    (measured on the warmup), so a call whose host time exceeds its device
+    time is still timed on the device and not on the host."""
     import torch
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # 2e9 cycles a second bounds the card's clock from above
+    torch.cuda._sleep(int(min(2.0 * iters * host_s, 1.0) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -208,7 +219,12 @@ def check_sdf_mlp(device, batch: int, seed: int = 0):
                         "step_library_ms": sum(lib_by_rows[r] for r in step_rows),
                         "step_plain_ms": sum(plain_by_rows[r] for r in step_rows)}
                 if dtype == torch.float32:
+                    # the eight launches, and the largest alone
                     f32_step = {"f32_" + k: v for k, v in step.items() if k != "step_rows"}
+                    f32_step.update({
+                        "f32_ms": by_rows[rows_big], "f32_bound_ms": bound_for(rows_big)[0],
+                        "f32_library_ms": lib_by_rows[rows_big],
+                        "f32_plain_ms": plain_by_rows[rows_big], "f32_max_abs_err": err})
                     res.update(f32_step)
                 else:
                     b_ms, b_by = bound_for(rows_big)
@@ -304,13 +320,15 @@ def time_gather_lerp_bwd(grid, grad, shapes, dtype):
     version's, grid_sample's backward x5 through autograd, and the kernel on
     the fine levels (0-2) and the coarse levels (3-4) alone.  The bound
     counts what the function must move: g and the grid read once, d/dfeat
-    written once in the maps' type.  The kernel also zero-fills an f32
-    accumulator for d/dfeat, a cost of its atomic design and not of the
-    function: its bytes are printed beside the bound, not in it."""
+    written once in the maps' type, for all five levels and for each level
+    group.  The kernel also zero-fills an f32 accumulator for the levels on
+    its global route, a cost of its atomic design and not of the function:
+    its bytes are printed beside the bound, not in it."""
     import torch
     import torch.nn.functional as F
 
-    from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp_bwd, gather_lerp_bwd_plain
+    from hoisdf_torch.ops.kernels.gather_lerp import (
+        bwd_plan, gather_lerp_bwd, gather_lerp_bwd_plain)
 
     batch, size = grid.shape[0], torch.finfo(dtype).bits // 8
     maps = [torch.zeros(batch, h, w, c, device=grid.device, requires_grad=True)
@@ -326,31 +344,41 @@ def time_gather_lerp_bwd(grid, grad, shapes, dtype):
     c_fine = sum(c for _, _, c in shapes[:3])
     grad_fine = grad[..., :c_fine].contiguous()
     grad_coarse = grad[..., c_fine:].contiguous()
-    dfeat = sum(batch * h * w * c for h, w, c in shapes)
-    nbytes = grad.numel() * grad.element_size() + grid.numel() * 4 + dfeat * size
-    # per g value and corner: a weight product and an add
-    b_ms, b_by = bound(8.0 * grad.numel(), H100_F32_FLOPS, nbytes)
+
+    def bound_of(g_part, shapes_part):
+        dfeat = sum(batch * h * w * c for h, w, c in shapes_part)
+        nbytes = g_part.numel() * g_part.element_size() + grid.numel() * 4 + dfeat * size
+        # per g value and corner: a weight product and an add
+        return bound(8.0 * g_part.numel(), H100_F32_FLOPS, nbytes) + (nbytes, dfeat)
+
+    b_ms, b_by, nbytes, dfeat = bound_of(grad, shapes)
+    fine_left = [shape for shape, (sl, _) in zip(shapes, bwd_plan(shapes)) if sl == 0]
     return {"ms": time_ms(lambda: gather_lerp_bwd(grid, grad, shapes, dtype)),
             "plain_ms": time_ms(lambda: gather_lerp_bwd_plain(grid, grad, shapes, dtype),
                                 iters=3),
             "library_ms": time_ms(library, iters=3),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
-            "zero_fill_bytes": dfeat * 4,
+            "zero_fill_bytes": sum(batch * h * w * c for h, w, c in fine_left) * 4,
             "ms_levels_0_2": time_ms(lambda: gather_lerp_bwd(grid, grad_fine, shapes[:3], dtype)),
+            "bound_levels_0_2_ms": bound_of(grad_fine, shapes[:3])[0],
             "ms_levels_3_4": time_ms(lambda: gather_lerp_bwd(grid, grad_coarse, shapes[3:],
-                                                             dtype))}
+                                                             dtype)),
+            "bound_levels_3_4_ms": bound_of(grad_coarse, shapes[3:])[0]}
 
 
 def bwd_error(grid, grad, shapes, dtype):
     """The backward kernel against its plain version: the largest absolute
-    error, and the largest error scaled by max(1, the largest |d/dfeat|)."""
+    error, and the largest error scaled by max(1, the largest |d/dfeat|).
+    The plain version's f32 sums are the reference for bf16 results too: two
+    roundings to bf16 of f32 sums taken in other orders may land one bf16
+    step apart (twice the one rounding that the bf16 tolerance allows)."""
     import torch
 
     from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp_bwd, gather_lerp_bwd_plain
 
     got = gather_lerp_bwd(grid, grad, shapes, dtype)
     torch.cuda.synchronize()
-    want = gather_lerp_bwd_plain(grid, grad, shapes, dtype)
+    want = gather_lerp_bwd_plain(grid, grad, shapes, torch.float32)
     abs_err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
     scaled = max((a.float() - w.float()).abs().max().item()
                  / max(w.float().abs().max().item(), 1.0) for a, w in zip(got, want))
@@ -367,7 +395,7 @@ def check_gather_lerp_bwd(device, batch: int, points: int, seed: int = 2):
     uniform, a clustered and a border grid.  The kernel adds with f32 atomics
     in no fixed order: f32 results must agree within 1e-5 of the largest
     |d/dfeat| (or 1e-5 absolute below 1), bf16 results within one bf16
-    rounding (2^-8 relative).  The uniform and the clustered grid are timed
+    rounding (2^-8 relative) of the plain version's f32 sums.  The uniform and the clustered grid are timed
     in f32; the train phase times the kernel on a train step's own grid."""
     import torch
 
@@ -854,7 +882,9 @@ def main() -> int:
          "plain_ms": sdf_timed["plain_ms"], "bound_ms": sdf_timed["bound_ms"],
          "bound_by": sdf_timed["bound_by"], "library_ms": sdf_timed["library_ms"],
          **{k: sdf_timed[k] for k in ("step_ms", "step_bound_ms", "step_library_ms",
-                                      "step_plain_ms", "f32_step_ms", "f32_step_bound_ms",
+                                      "step_plain_ms", "f32_ms", "f32_bound_ms",
+                                      "f32_library_ms", "f32_plain_ms", "f32_max_abs_err",
+                                      "f32_step_ms", "f32_step_bound_ms",
                                       "f32_step_library_ms", "f32_step_plain_ms")}},
         {"name": "gather_lerp", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_TPU,

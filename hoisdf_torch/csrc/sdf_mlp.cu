@@ -49,10 +49,41 @@
 //     zero, and so are the padded rows and columns of the packed weights.
 //   - The block has 160 threads and an SM holds one block (shared memory), so
 //     every thread may use 255 registers and no setmaxnreg is needed.
-// f32 (parity runs, not on the serving path): CUDA-core FMAs on 32-row tiles,
-// a 2 x 4 register tile per thread, weights staged in 32-row slices, so f32
-// stays f32 (the tensor cores would round it to TF32); a warp-per-row dot
-// product for the output layer.
+//
+// f32 (the field-guided train sampler: eight launches a step, every probe of
+// both cascades).  Full f32 on the CUDA cores: the tensor cores would round
+// to TF32, which the port's policy turns off.  Bounded by the FMA rate
+// (67 TFLOP/s) if the weights arrive in time, then by L2: each block of 32
+// rows reads all 3.15 MB of f32 weights again (16 FLOP a byte).
+//   - A block is eight consumer warps, which own 32 rows, and one producer
+//     warp.  Input and activations stay in shared memory for all five layers,
+//     k-major (act[k][row], a pitch of 36 floats, which halves the bank
+//     conflicts of the epilogue's stores against 32): a thread's eight rows at
+//     one k are two 16-byte loads, the same for every lane of a warp (a
+//     broadcast).
+//   - A pass holds up to 512 output columns.  A thread accumulates 8 rows x 8
+//     columns (two runs of 4, half a pass apart, so a warp's weight loads are
+//     512 contiguous bytes): 64 FMAs for four 16-byte shared loads per k.
+//     Passes of 256 columns or fewer (the 223-wide layer, padded to 224) take
+//     an 8 x 4 tile, so 224 threads have work instead of 112.  (Tiles of
+//     8 x 16 on four warps, 128 FMAs for six loads, were no faster.)
+//   - The weights come packed by the wrapper module (_pack_f32, once per
+//     forward) as k-slices of 8 rows x a pass's columns, zero-padded (widths
+//     and k-ranges to a multiple of 8), in the order the consumers walk
+//     them.  The producer brings each slice with one cp.async.bulk onto a
+//     ring of up to four 16 KB stages; the consumers wait on its "full"
+//     mbarrier and each warp releases it on its "empty" mbarrier.  There is
+//     no block barrier per slice, one per layer.  (Two stages time the same
+//     as four: the ring is deep enough.)
+//   - The skip concat is a second k-range of layer 2 that reads the resident
+//     input.  Layer 3's output is never stored: the 512 -> 1 dot with w4 is
+//     taken in its epilogue, summed over each thread's columns, then over the
+//     threads of a row in a fixed order through shared memory (no atomics, so
+//     the output is deterministic), then tanh.
+//   It runs at about half the FMA rate, level with cuBLAS's f32 chain on the
+//   same rows; the clock holds its 1,980 MHz and the ring's depth does not
+//   move it, so what holds it is inside the SM (issue stalls between the
+//   shared loads and the FMAs, register banks), which ncu would have to show.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,62 +95,6 @@ namespace {
 
 using namespace hopper;
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 256;  // f32 kernel
-
-// ---- f32: CUDA cores -------------------------------------------------------
-
-constexpr int kF32Rows = 32;
-constexpr int kNT = 64;  // output columns per pass (16 column groups x 4)
-constexpr int kKT = 32;  // weight rows per staged slice
-
-// out[32, n] = relu([a1 | a2] . W + bias): a1 is [32, k1], a2 is [32, k2]
-// (k2 = 0 except for the skip layer), both in shared memory; W is
-// [k1 + k2, n] row-major in global memory.
-__device__ void dense_relu_f32(const float* a1, int lda1, int k1, const float* a2,
-                               int lda2, int k2, const float* __restrict__ w,
-                               const float* __restrict__ bias, int n, float* out,
-                               int ldo, float* w_s) {
-  constexpr int RM = kF32Rows / 16;
-  const int tx = threadIdx.x % 16;  // 4 contiguous columns
-  const int ty = threadIdx.x / 16;  // rows ty, ty + 16
-  const int k = k1 + k2;
-  for (int n0 = 0; n0 < n; n0 += kNT) {
-    float acc[RM][4] = {};
-    for (int k0 = 0; k0 < k; k0 += kKT) {
-      for (int i = threadIdx.x; i < kKT * kNT; i += kThreads) {
-        const int kk = i / kNT, nn = i % kNT;
-        const int gk = k0 + kk, gn = n0 + nn;
-        w_s[i] = (gk < k && gn < n) ? w[(size_t)gk * n + gn] : 0.f;
-      }
-      __syncthreads();
-      const int kend = min(kKT, k - k0);
-      for (int kk = 0; kk < kend; ++kk) {
-        const int gk = k0 + kk;
-        const float* src = gk < k1 ? a1 + gk : a2 + (gk - k1);
-        const int ld = gk < k1 ? lda1 : lda2;
-        const float4 b = *reinterpret_cast<const float4*>(w_s + kk * kNT + 4 * tx);
-#pragma unroll
-        for (int r = 0; r < RM; ++r) {
-          const float a = src[(ty + 16 * r) * ld];
-          acc[r][0] = fmaf(a, b.x, acc[r][0]);
-          acc[r][1] = fmaf(a, b.y, acc[r][1]);
-          acc[r][2] = fmaf(a, b.z, acc[r][2]);
-          acc[r][3] = fmaf(a, b.w, acc[r][3]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gn = n0 + 4 * tx + c;
-      if (gn < n) {
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-          out[(ty + 16 * r) * ldo + gn] = fmaxf(acc[r][c] + bias[gn], 0.f);
-      }
-    }
-  }
-}
 
 // ---- bf16: wgmma, weight stages by bulk copy --------------------------------
 
@@ -480,52 +455,222 @@ sdf_mlp_bf16_kernel(const Bf16Args A) {
 
 // ---- the f32 kernel -----------------------------------------------------------
 
-// 512 -> 1 output layer: one warp per row, then tanh.
-__device__ void output_layer_f32(const float* h, int ldh, int rows, int k,
-                                 const float* __restrict__ w4, const float* __restrict__ b4,
-                                 int row0, int n_rows, float* out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float bias4 = b4[0];
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float s = 0.f;
-    for (int kk = lane; kk < k; kk += 32) s = fmaf(h[r * ldh + kk], w4[kk], s);
+constexpr int kF32Rows = 32;                  // rows per block
+constexpr int kF32Ld = kF32Rows + 4;          // pitch of a k-major activation row, floats
+constexpr int kF32Consumers = 256;            // eight warps: 4 row groups x 64 column groups
+constexpr int kF32Threads = kF32Consumers + 32;
+constexpr int kSliceK = 8;                    // k per weight slice
+constexpr int kPadF32 = 8;                    // widths and k-ranges pad to a multiple of this
+constexpr int kPassN = 512;                   // output columns per pass, at most
+constexpr int kF32StageBytes = kSliceK * kPassN * 4;
+constexpr int kF32MaxStages = 4;
+constexpr int kRedLd = 65;                    // pitch of the output dot's partial sums
+
+struct F32Args {
+  const float* x;
+  const float* slices;   // every pass's k-slices in walk order (the wrapper's _pack_f32)
+  const float* vectors;  // b0..b3 and w4, each zero-padded to a multiple of kPadF32
+  const float* b4;
+  float* out;
+  int n_rows, in_dim, h[4], n_stages;
+  int off_x, off_a, off_b, off_red, off_bar;  // byte offsets into dynamic shared memory
+};
+
+__device__ __forceinline__ void f32_barrier() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kF32Consumers) : "memory");
+}
+
+// One k-range of a layer: its k-major activations in shared memory and its
+// depth, padded to kPadF32.
+struct F32Seg {
+  const float* p;
+  int k;
+};
+
+struct F32Ring {
+  uint32_t full, empty;  // barriers [n_stages]
+  const float* data;     // stage buffers
+  int n_stages, stage, parity;
+};
+
+// One pass of pw columns from n0 (pass-relative column c is layer column
+// n0 + c).  A thread owns 8 rows, rg*8.., and kCols columns in runs of 4,
+// cg*4.. and then every pw / (kCols / 4) after: 4 row groups and pw / kCols
+// <= 64 column groups, so a warp's weight loads are 512 contiguous bytes and
+// its activation loads one broadcast.  Threads past the groups only keep the
+// ring's count.  kLast: nothing is stored; the partial dot of each of the
+// thread's rows with w4 goes to red_s, and the first 32 threads add a row's
+// partials, in column-group order, into dot.
+template <int kCols, bool kLast>
+__device__ __forceinline__ void f32_pass(F32Ring& ring, F32Seg s0, F32Seg s1, int n0, int pw,
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ w4, float* out,
+                                         float* red_s, float& dot) {
+  constexpr int kRuns = kCols / 4;
+  const int tid = threadIdx.x;
+  const int groups = pw / kCols, run = pw / kRuns;
+  const bool on = tid < 4 * groups;
+  const int rg = tid / groups, cg = tid % groups;
+  const int rows = 8 * rg, c0 = 4 * cg;
+  float acc[8][kCols];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    const int g = row0 + r;
-    if (lane == 0 && g < n_rows) out[g] = tanhf(s + bias4);
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[r][j] = 0.f;
+#pragma unroll 1
+  for (int si = 0; si < 2; ++si) {
+    const F32Seg s = si == 0 ? s0 : s1;
+#pragma unroll 1
+    for (int k0 = 0; k0 < s.k; k0 += kSliceK) {
+      mbar_wait(ring.full + 8 * ring.stage, ring.parity);
+      const float* w_s = ring.data + ring.stage * (kF32StageBytes / 4);
+      if (on) {
+#pragma unroll
+        for (int kk = 0; kk < kSliceK; ++kk) {
+          const float* a = s.p + (k0 + kk) * kF32Ld + rows;
+          const float4 a0 = *reinterpret_cast<const float4*>(a);
+          const float4 a1 = *reinterpret_cast<const float4*>(a + 4);
+          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          float bv[kCols];
+#pragma unroll
+          for (int q = 0; q < kRuns; ++q) {
+            const float4 b = *reinterpret_cast<const float4*>(w_s + kk * pw + c0 + q * run);
+            bv[4 * q] = b.x;
+            bv[4 * q + 1] = b.y;
+            bv[4 * q + 2] = b.z;
+            bv[4 * q + 3] = b.w;
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
+        }
+      }
+      __syncwarp();
+      if (tid % 32 == 0) mbar_arrive(ring.empty + 8 * ring.stage);
+      if (++ring.stage == ring.n_stages) {
+        ring.stage = 0;
+        ring.parity ^= 1;
+      }
+    }
+  }
+  float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (on) {
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = n0 + c0 + (j / 4) * run + j % 4;
+      const float b = __ldg(bias + c);
+      float v[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) v[r] = fmaxf(acc[r][j] + b, 0.f);
+      if (kLast) {
+        const float w = __ldg(w4 + c);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) part[r] = fmaf(v[r], w, part[r]);
+      } else {
+        float* o = out + c * kF32Ld + rows;
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(o + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      }
+    }
+  }
+  if (kLast) {
+    if (on) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) red_s[(rows + r) * kRedLd + cg] = part[r];
+    }
+    f32_barrier();
+    if (tid < kF32Rows)
+      for (int g = 0; g < groups; ++g) dot += red_s[tid * kRedLd + g];
+    f32_barrier();  // red_s is free for the next pass
   }
 }
 
-struct Weights {
-  const void* p[10];  // w0, b0, w1, b1, w2, b2, w3, b3, w4, b4
-  int h[4];           // hidden widths
-};
+// One hidden layer of width n (padded to kPadF32): passes of up to kPassN
+// columns, each walking the k-ranges s0 then s1 slice by slice.
+template <bool kLast>
+__device__ __forceinline__ void f32_layer(F32Ring& ring, F32Seg s0, F32Seg s1, int n,
+                                          const float* bias, const float* w4, float* out,
+                                          float* red_s, float& dot) {
+  for (int n0 = 0; n0 < n; n0 += kPassN) {
+    const int pw = min(kPassN, n - n0);
+    // the wider thread tile whose column groups fit 64 (the 224-wide layer: 4)
+    if (pw > 256)
+      f32_pass<8, kLast>(ring, s0, s1, n0, pw, bias, w4, out, red_s, dot);
+    else
+      f32_pass<4, kLast>(ring, s0, s1, n0, pw, bias, w4, out, red_s, dot);
+  }
+  if (!kLast) f32_barrier();  // the next layer reads what every warp stored
+}
 
-__global__ void __launch_bounds__(kThreads)
-sdf_mlp_f32_kernel(const float* __restrict__ x, int n_rows, int in_dim, Weights W,
-                   float* __restrict__ out, int ldx, int ldh) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* w_s = reinterpret_cast<float*>(smem);
-  float* x_s = w_s + kKT * kNT;
-  float* ha = x_s + kF32Rows * ldx;
-  float* hb = ha + kF32Rows * ldh;
-  const int row0 = blockIdx.x * kF32Rows;
-  auto p = [&](int i) { return static_cast<const float*>(W.p[i]); };
+__host__ __device__ constexpr int pad_k(int v) { return (v + kPadF32 - 1) / kPadF32 * kPadF32; }
 
-  for (int i = threadIdx.x; i < kF32Rows * in_dim; i += kThreads) {
-    const int r = i / in_dim, c = i % in_dim, g = row0 + r;
-    x_s[r * ldx + c] = g < n_rows ? x[(size_t)g * in_dim + c] : 0.f;
+__global__ void __launch_bounds__(kF32Threads, 1)
+sdf_mlp_f32_kernel(const F32Args A) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t full = smem_u32(smem + A.off_bar), empty = full + 8 * kF32MaxStages;
+  const int tid = threadIdx.x;
+  int hp[4];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) hp[l] = pad_k(A.h[l]);
+  const int in_pad = pad_k(A.in_dim);
+  if (tid == 0) {
+    for (int s = 0; s < A.n_stages; ++s) {
+      mbar_init(full + 8 * s, 1);                       // the producer's expect_tx
+      mbar_init(empty + 8 * s, kF32Consumers / 32);     // every consumer warp
+    }
+    mbar_fence_init();
   }
   __syncthreads();
-  dense_relu_f32(x_s, ldx, in_dim, nullptr, 0, 0, p(0), p(1), W.h[0], ha, ldh, w_s);
-  __syncthreads();
-  dense_relu_f32(ha, ldh, W.h[0], nullptr, 0, 0, p(2), p(3), W.h[1], hb, ldh, w_s);
-  __syncthreads();
-  dense_relu_f32(hb, ldh, W.h[1], x_s, ldx, in_dim, p(4), p(5), W.h[2], ha, ldh, w_s);
-  __syncthreads();
-  dense_relu_f32(ha, ldh, W.h[2], nullptr, 0, 0, p(6), p(7), W.h[3], hb, ldh, w_s);
-  __syncthreads();
-  output_layer_f32(hb, ldh, kF32Rows, W.h[3], p(8), p(9), row0, n_rows, out);
+
+  if (tid >= kF32Consumers) {
+    // ---- producer warp: one lane walks the slices in the consumers' order
+    if (tid == kF32Consumers) {
+      const int layer_k[4] = {in_pad, hp[0], hp[1] + in_pad, hp[2]};
+      const float* src = A.slices;
+      const uint32_t data = smem_u32(smem);
+      int stage = 0, parity = 1;  // a fresh barrier's "previous phase" has completed
+      for (int l = 0; l < 4; ++l)
+        for (int n0 = 0; n0 < hp[l]; n0 += kPassN) {
+          const int pw = min(kPassN, hp[l] - n0);
+          for (int k0 = 0; k0 < layer_k[l]; k0 += kSliceK) {
+            mbar_wait(empty + 8 * stage, parity);
+            mbar_expect_tx(full + 8 * stage, kSliceK * pw * 4);
+            bulk_copy(data + stage * kF32StageBytes, src, kSliceK * pw * 4, full + 8 * stage);
+            src += kSliceK * pw;
+            if (++stage == A.n_stages) {
+              stage = 0;
+              parity ^= 1;
+            }
+          }
+        }
+    }
+    return;
+  }
+
+  // ---- consumer warps
+  float* x_s = reinterpret_cast<float*>(smem + A.off_x);
+  float* a_s = reinterpret_cast<float*>(smem + A.off_a);
+  float* b_s = reinterpret_cast<float*>(smem + A.off_b);
+  float* red_s = reinterpret_cast<float*>(smem + A.off_red);
+  const int row0 = blockIdx.x * kF32Rows;
+  // the tile's input, k-major, zero past in_dim and past the last row
+  for (int i = tid; i < kF32Rows * in_pad; i += kF32Consumers) {
+    const int r = i / in_pad, k = i % in_pad, g = row0 + r;
+    x_s[k * kF32Ld + r] = (k < A.in_dim && g < A.n_rows) ? A.x[(size_t)g * A.in_dim + k] : 0.f;
+  }
+  f32_barrier();
+  const float* v = A.vectors;
+  const float* bias[4] = {v, v + hp[0], v + hp[0] + hp[1], v + hp[0] + hp[1] + hp[2]};
+  const float* w4 = bias[3] + hp[3];
+  F32Ring ring{full, empty, reinterpret_cast<const float*>(smem), A.n_stages, 0, 0};
+  const F32Seg none{nullptr, 0}, sx{x_s, in_pad};
+  float dot = 0.f;
+  f32_layer<false>(ring, sx, none, hp[0], bias[0], nullptr, a_s, red_s, dot);
+  f32_layer<false>(ring, F32Seg{a_s, hp[0]}, none, hp[1], bias[1], nullptr, b_s, red_s, dot);
+  f32_layer<false>(ring, F32Seg{b_s, hp[1]}, sx, hp[2], bias[2], nullptr, a_s, red_s, dot);
+  f32_layer<true>(ring, F32Seg{a_s, hp[2]}, none, hp[3], bias[3], w4, nullptr, red_s, dot);
+  if (tid < kF32Rows && row0 + tid < A.n_rows) A.out[row0 + tid] = tanhf(dot + A.b4[0]);
 }
 
 // ---- launch -------------------------------------------------------------------
@@ -540,26 +685,47 @@ cudaError_t set_smem(const void* kern, size_t smem) {
 }  // namespace
 
 // x: [n, in_dim]; w: the ten pointers w0, b0, ..., w4, b4; h: the four hidden
-// widths.  dtype 0 = float32: w0..w3 are [in, out].  dtype 1 = bfloat16: w[0]
-// is the run of n_stages weight stages and w[1] the padded vectors that the
-// wrapper module's _pack_bf16 makes, w[9] is b4 (the others are not read).
-// Returns a cudaError_t.
+// widths.  w[0] is the run of n_stages packed weight pieces and w[1] the
+// padded vectors that the wrapper module makes (dtype 0 = float32: k-slices,
+// _pack_f32; dtype 1 = bfloat16: 16 KB stages, _pack_bf16), w[9] is b4 (the
+// others are not read).  Returns a cudaError_t.
 extern "C" int sdf_mlp_launch(const void* x, int dtype, int n, int in_dim,
                               const void* const* w, const int* h, int n_stages, void* out,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    Weights W;
-    for (int i = 0; i < 10; ++i) W.p[i] = w[i];
-    for (int i = 0; i < 4; ++i) W.h[i] = h[i];
-    const int hmax = max(max(h[0], h[1]), max(h[2], h[3]));
-    // odd row pitches: the two rows a warp reads at once sit in other banks
-    const int ldx = in_dim | 1, ldh = hmax | 1;
-    const size_t smem = sizeof(float) * (kKT * kNT + (size_t)kF32Rows * (ldx + 2 * ldh));
+    int hp[4], want = 0;
+    for (int l = 0; l < 4; ++l) hp[l] = pad_k(h[l]);
+    const int in_pad = pad_k(in_dim);
+    const int layer_k[4] = {in_pad, hp[0], hp[1] + in_pad, hp[2]};
+    for (int l = 0; l < 4; ++l) want += cdiv(hp[l], kPassN) * (layer_k[l] / kSliceK);
+    if (n_stages != want) return cudaErrorInvalidValue;
+    F32Args A;
+    A.x = static_cast<const float*>(x);
+    A.slices = static_cast<const float*>(w[0]);
+    A.vectors = static_cast<const float*>(w[1]);
+    A.b4 = static_cast<const float*>(w[9]);
+    A.out = static_cast<float*>(out);
+    A.n_rows = n;
+    A.in_dim = in_dim;
+    for (int l = 0; l < 4; ++l) A.h[l] = h[l];
+    // the input, the wide buffer (layers 0 and 2 write it), the narrow one
+    // (layer 1), the output dot's partial sums and the barriers; then as many
+    // ring stages in front of them as fit
+    const int act = kF32Ld * (int)sizeof(float);
+    const int tail = (in_pad + max(hp[0], hp[2]) + hp[1]) * act +
+                     kF32Rows * kRedLd * (int)sizeof(float) + 2 * kF32MaxStages * 8;
+    A.n_stages = min(kF32MaxStages, (int)((kMaxSmem - tail) / kF32StageBytes));
+    if (tail > (int)kMaxSmem || A.n_stages < 2) return cudaErrorInvalidValue;
+    A.off_x = A.n_stages * kF32StageBytes;
+    A.off_a = A.off_x + in_pad * act;
+    A.off_b = A.off_a + max(hp[0], hp[2]) * act;
+    A.off_red = A.off_b + hp[1] * act;
+    A.off_bar = A.off_red + (kF32Rows * kRedLd * (int)sizeof(float) + 15) / 16 * 16;
+    const size_t smem = (size_t)A.off_bar + 2 * kF32MaxStages * 8;
     if ((err = set_smem((const void*)sdf_mlp_f32_kernel, smem)) != cudaSuccess) return err;
-    sdf_mlp_f32_kernel<<<(n + kF32Rows - 1) / kF32Rows, kThreads, smem, s>>>(
-        static_cast<const float*>(x), n, in_dim, W, static_cast<float*>(out), ldx, ldh);
+    sdf_mlp_f32_kernel<<<cdiv(n, kF32Rows), kF32Threads, smem, s>>>(A);
     return cudaGetLastError();
   }
   if (dtype != 1) return cudaErrorInvalidValue;

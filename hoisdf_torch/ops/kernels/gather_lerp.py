@@ -96,14 +96,50 @@ def _check_grid(grid: torch.Tensor, name: str) -> Tuple[int, int]:
     return b, p
 
 
+# The backward's plan (csrc/gather_lerp.cu): a level with at most
+# BWD_SHARED_MAX_CELLS cells per image, where an image's points crowd onto a
+# few cells, takes the shared route, in blocks of BWD_SLICE channels (the
+# last block of a level may be narrower), each with as many private copies of
+# the slice's map, up to 16 (one per group of 16 lanes), as fit in
+# BWD_COPIES_BYTES; the other levels take the global route.
+BWD_SHARED_MAX_CELLS = 256
+BWD_SLICE = 16
+BWD_COPIES_BYTES = 48 * 1024
+BWD_CHUNK = 256  # points whose corners and g a shared-route block stages at a time
+SMEM_LIMIT = 232448  # a block's shared memory on Hopper: 227 KB
+
+
+def bwd_plan(shapes: Sequence[Tuple[int, int, int]]) -> Tuple[Tuple[int, int], ...]:
+    """Per level (H, W, C): (channels per block, copies per block) of the
+    shared route, or (0, 0) for the global route."""
+    plan = []
+    for h, w, c in shapes:
+        if h * w > BWD_SHARED_MAX_CELLS:
+            plan.append((0, 0))
+            continue
+        s = min(c, BWD_SLICE)
+        plan.append((s, max(1, min(16, BWD_COPIES_BYTES // (h * w * s * 4)))))
+    return tuple(plan)
+
+
+def bwd_shared_bytes(h: int, w: int, slice_: int, copies: int) -> int:
+    """Shared memory of a shared-route block (as the kernel's shared_bytes):
+    a copy of the slice's h*w cells per group, then a chunk's g (16 f32
+    channels a point) and its corner table (an int4 of cells and a float4 of
+    weights per point)."""
+    return -(-copies * h * w * slice_ * 4 // 16) * 16 + BWD_CHUNK * (16 * 4 + 32)
+
+
 def gather_lerp_bwd(grid: torch.Tensor, g: torch.Tensor,
                     shapes: Sequence[Tuple[int, int, int]], dtype: torch.dtype
                     ) -> List[torch.Tensor]:
     """The backward of :func:`gather_lerp`: d/dfeat of every level (H, W, C)
     of ``shapes`` for the output gradient ``g`` [B,P,sum C], in ``dtype``.
-    CPU tensors take :func:`gather_lerp_bwd_plain`; on the card one launch of
-    the backward kernel adds into a zeroed f32 buffer (f32 atomics, so the
-    result is not bitwise repeatable), which is then cast to ``dtype``."""
+    CPU tensors take :func:`gather_lerp_bwd_plain`.  On the card one launch
+    covers every level, as :func:`bwd_plan` routes them: the shared route
+    writes its levels whole in ``dtype``; the global route adds into a zeroed
+    f32 buffer of its levels alone, cast to ``dtype`` after.  Both add with
+    atomics, so the result is not bitwise repeatable."""
     if grid.device.type == "cpu":
         return gather_lerp_bwd_plain(grid, g, shapes, dtype)
     if grid.device.type != "cuda":
@@ -119,19 +155,30 @@ def gather_lerp_bwd(grid: torch.Tensor, g: torch.Tensor,
                          f"on {g.device}")
     if dtype not in _DTYPES:
         raise TypeError(f"gather_lerp_bwd: map dtype {dtype} not in {list(_DTYPES)}")
-    sizes = [b * h * w * c for h, w, c in shapes]
+    plan = bwd_plan(shapes)
+    sizes = [b * h * w * c for (h, w, c), (sl, _) in zip(shapes, plan) if sl == 0]
     acc = torch.zeros(sum(sizes), dtype=torch.float32, device=grid.device)
+    outs = [torch.empty((b, *s), dtype=dtype, device=grid.device) if sl else None
+            for s, (sl, _) in zip(shapes, plan)]
     if b * p > 0:
         lib = library()
         dims = (ctypes.c_int * (3 * len(shapes)))(*[d for s in shapes for d in s])
+        plan_c = (ctypes.c_int * (2 * len(shapes)))(*[v for lv in plan for v in lv])
+        out_ptrs = (ctypes.c_void_p * len(shapes))(*[o.data_ptr() if o is not None else None
+                                                     for o in outs])
         with torch.cuda.device(grid.device):
             stream = torch.cuda.current_stream(grid.device).cuda_stream
             rc = lib.gather_lerp_bwd_launch(grid.data_ptr(), g.data_ptr(), b, p, len(shapes),
-                                            dims, _DTYPES[g.dtype], acc.data_ptr(), stream)
+                                            dims, _DTYPES[g.dtype], plan_c, acc.data_ptr(),
+                                            out_ptrs, _DTYPES[dtype], stream)
         if rc != 0:
             raise RuntimeError(f"gather_lerp_bwd kernel launch failed with CUDA error {rc}")
         launch_counts["gather_lerp_bwd"] += 1
-    return [a.view(b, *s).to(dtype) for a, s in zip(torch.split(acc, sizes), shapes)]
+    else:
+        outs = [o.zero_() if o is not None else None for o in outs]
+    fine = iter(torch.split(acc, sizes))
+    return [o if o is not None else next(fine).view(b, *s).to(dtype)
+            for o, s in zip(outs, shapes)]
 
 
 class _GatherLerp(torch.autograd.Function):

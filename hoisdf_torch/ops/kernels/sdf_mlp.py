@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -126,11 +126,60 @@ def _pack_bf16(w, h) -> Tuple[torch.Tensor, torch.Tensor]:
     return stages.reshape(-1, STAGE_N * PANEL_K), vectors
 
 
+# The f32 kernel's tiling: widths and k-ranges pad to a multiple of PAD_F32; a
+# pass holds up to PASS_N output columns; each pass streams its weights as
+# k-slices of SLICE_K rows x the pass's columns, row-major.
+SLICE_K = 8
+PAD_F32 = 8
+PASS_N = 512
+
+
+def f32_passes(n: int) -> List[Tuple[int, int]]:
+    """(first column, width) of each pass of a layer n wide, padded to PAD_F32."""
+    n_pad = _round(n, PAD_F32)
+    return [(n0, min(PASS_N, n_pad - n0)) for n0 in range(0, n_pad, PASS_N)]
+
+
+def _pack_f32(w, h) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The four hidden weights as the run of k-slices the f32 kernel's producer
+    copies (one flat f32 run: slices of SLICE_K rows x a pass's width, one
+    width per pass), and the vectors b0..b3 and w4, each zero-padded to a
+    multiple of PAD_F32.  Per layer, W ``[sum of padded k-ranges, padded
+    width]`` holds each k-range's rows from a multiple of PAD_F32, zeros
+    elsewhere; the slices follow the consumers' walk: layer, pass, k
+    (:func:`f32_slice_count` counts them)."""
+    in_dim, dev = w[0].shape[0], w[0].device
+    runs = []
+    for (n, ks), wl in zip(_layer_ranges(in_dim, h), (w[0], w[2], w[4], w[6])):
+        wp = torch.zeros(sum(_round(k, PAD_F32) for k in ks), _round(n, PAD_F32),
+                         dtype=torch.float32, device=dev)
+        row = off = 0
+        for k in ks:
+            wp[off:off + k, :n] = wl[row:row + k]
+            row, off = row + k, off + _round(k, PAD_F32)
+        runs.extend(wp[:, n0:n0 + pw].reshape(-1) for n0, pw in f32_passes(n))
+    vectors = torch.zeros(sum(_round(n, PAD_F32) for n in (*h, h[3])),
+                          dtype=torch.float32, device=dev)
+    off = 0
+    for v in (w[1], w[3], w[5], w[7], w[8]):
+        vectors[off:off + v.numel()] = v.reshape(-1)
+        off += _round(v.numel(), PAD_F32)
+    return torch.cat(runs), vectors
+
+
+def f32_slice_count(in_dim: int, h: Sequence[int]) -> int:
+    """How many k-slices :func:`_pack_f32` makes (the kernel checks it)."""
+    return sum(len(f32_passes(n)) * sum(_round(k, PAD_F32) for k in ks) // SLICE_K
+               for n, ks in _layer_ranges(in_dim, h))
+
+
 class MlpWeights(NamedTuple):
     """The weights as :func:`sdf_mlp` takes them (:func:`prepare_weights`)."""
 
     plain: Tuple[torch.Tensor, ...]  # the ten of fold_weight_norm, in one dtype
-    packed: Optional[Tuple[torch.Tensor, torch.Tensor]]  # bf16: weight stages, vectors
+    # the kernel's layout: bf16 weight stages or f32 k-slices (one flat run),
+    # and the padded vectors
+    packed: Tuple[torch.Tensor, torch.Tensor]
 
     @property
     def in_dim(self) -> int:
@@ -139,8 +188,8 @@ class MlpWeights(NamedTuple):
 
 def prepare_weights(weights: Sequence[torch.Tensor], dtype: torch.dtype) -> MlpWeights:
     """Cast the ten tensors of :func:`fold_weight_norm` to ``dtype`` (f32 or
-    bf16), check that their shapes chain, and for bf16 pack the four hidden
-    weights into the kernel's weight stages (:func:`_pack_bf16`)."""
+    bf16), check that their shapes chain, and pack the four hidden weights
+    into the kernel's layout (:func:`_pack_bf16`, :func:`_pack_f32`)."""
     if dtype not in _DTYPES:
         raise TypeError(f"sdf_mlp: dtype {dtype} not in {list(_DTYPES)}")
     if len(weights) != 10:
@@ -155,7 +204,7 @@ def prepare_weights(weights: Sequence[torch.Tensor], dtype: torch.dtype) -> MlpW
         raise ValueError(f"sdf_mlp: weight shapes {got} != expected {want}")
     if len({t.device for t in w}) != 1:
         raise ValueError("sdf_mlp: weights lie on more than one device")
-    return MlpWeights(w, _pack_bf16(w, h) if dtype == torch.bfloat16 else None)
+    return MlpWeights(w, (_pack_bf16 if dtype == torch.bfloat16 else _pack_f32)(w, h))
 
 
 def sdf_mlp(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
@@ -182,10 +231,8 @@ def sdf_mlp(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
     out = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    n_stages = 0
-    if x.dtype == torch.bfloat16:
-        w[0], w[1] = weights.packed
-        n_stages = w[0].shape[0]
+    w[0], w[1] = weights.packed
+    n_stages = w[0].shape[0] if x.dtype == torch.bfloat16 else f32_slice_count(in_dim, h)
     lib = library()
     ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in w])
     dims = (ctypes.c_int * 4)(*h)

@@ -24,6 +24,9 @@ from hoisdf_torch.ops.grid_sample import (
     project_points,
 )
 from hoisdf_torch.ops.kernels.gather_lerp import (
+    SMEM_LIMIT,
+    bwd_plan,
+    bwd_shared_bytes,
     gather_lerp,
     gather_lerp_bwd,
     gather_lerp_bwd_plain,
@@ -182,14 +185,66 @@ def _clustered_grid(b, p, seed=11):
     return grid.astype(np.float32)
 
 
+PYRAMID = {"stride2": (128, 128, 32), "stride4": (64, 64, 64), "stride8": (32, 32, 128),
+           "stride16": (16, 16, 256), "stride32": (8, 8, 512)}
+
+
+def _bwd_blocks(batch, points, shapes, plan):
+    """What each block of the backward's launch covers, as the kernel cuts it:
+    (image, level, first channel, end channel, first point, end point).  A
+    global-route block takes 8 points of every global-route level, whole; a
+    shared-route block one channel slice of one level for all of the image's
+    points."""
+    blocks = []
+    glob = [i for i, (s, _) in enumerate(plan) if s == 0]
+    for b in range(batch):
+        if glob:
+            for p0 in range(0, points, 8):
+                blocks.extend((b, i, 0, shapes[i][2], p0, min(p0 + 8, points)) for i in glob)
+        for i, (s, _) in enumerate(plan):
+            if s:
+                blocks.extend((b, i, c0, min(c0 + s, shapes[i][2]), 0, points)
+                              for c0 in range(0, shapes[i][2], s))
+    return blocks
+
+
+@pytest.mark.parametrize("levels", [PYRAMID, LEVELS5, LEVELS_ODD],
+                         ids=["pyramid", "tiny", "odd"])
+def test_bwd_plan_covers_every_image_level_channel_once(levels):
+    """The backward's launch plan: each (image, point, level, channel) lies in
+    exactly one block; every shared-route block fits 227 KB of shared memory;
+    at the production pyramid, stride16 and stride32 take the shared route
+    and stride2-8 the global one."""
+    shapes = [tuple(d) for d in levels.values()]
+    b, p = 3, 21
+    plan = bwd_plan(shapes)
+    assert len(plan) == len(shapes)
+    offs = np.cumsum([0] + [c for _, _, c in shapes])
+    cover = np.zeros((b, p, offs[-1]), np.int32)
+    for img, lv, c0, c1, p0, p1 in _bwd_blocks(b, p, shapes, plan):
+        h, w, c = shapes[lv]
+        slice_, copies = plan[lv]
+        assert 0 <= c0 < c1 <= c
+        if slice_:
+            assert (p0, p1) == (0, p) and c1 - c0 <= slice_ <= 16 and 1 <= copies <= 16
+            assert bwd_shared_bytes(h, w, slice_, copies) <= SMEM_LIMIT
+        else:
+            assert (c0, c1) == (0, c) and copies == 0
+        cover[img, p0:p1, offs[lv] + c0:offs[lv] + c1] += 1
+    assert (cover == 1).all()
+    if levels is PYRAMID:  # stride16: 3 copies of 16 KB; stride32: 12 of 4 KB
+        assert plan == ((0, 0), (0, 0), (0, 0), (16, 3), (16, 12))
+
+
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA card")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("grid_kind", ["uniform", "clustered", "border"])
 @pytest.mark.parametrize("levels", [LEVELS5, LEVELS_ODD], ids=["vector", "scalar"])
 def test_bwd_kernel_matches_plain_on_card(levels, grid_kind, dtype):
-    """The backward kernel (f32 atomics, so not bitwise repeatable) against
-    its plain version: scaled error 1e-5 in f32; bf16 results within one
-    bf16 rounding (2^-8 relative) of the plain version's."""
+    """The backward kernel (atomics, so not bitwise repeatable) against its
+    plain version: scaled error 1e-5 in f32; bf16 results within one bf16
+    rounding (2^-8 relative) of the plain version's f32 sums (its bf16
+    result is a second rounding, of sums taken in another order)."""
     b, p = 3, 700
     grid = {"uniform": _grid, "clustered": _clustered_grid, "border": _border_grid}[grid_kind](b, p)
     grid = torch.from_numpy(grid).cuda()
@@ -198,7 +253,7 @@ def test_bwd_kernel_matches_plain_on_card(levels, grid_kind, dtype):
     g = torch.randn(b, p, c_total, generator=torch.Generator().manual_seed(12)).to("cuda", dtype)
     got = gather_lerp_bwd(grid, g, shapes, dtype)
     torch.cuda.synchronize()
-    want = gather_lerp_bwd_plain(grid, g, shapes, dtype)
+    want = gather_lerp_bwd_plain(grid, g, shapes, torch.float32)
     for a, w in zip(got, want):
         assert a.dtype == dtype and a.shape == w.shape
         scale = max(w.float().abs().max().item(), 1.0)

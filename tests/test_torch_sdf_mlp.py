@@ -18,6 +18,11 @@ import torch
 
 from hoisdf_torch.models.sdf_decoder import SDFDecoder as PortSDFDecoder
 from hoisdf_torch.ops.kernels.sdf_mlp import (
+    PAD_F32,
+    PASS_N,
+    SLICE_K,
+    f32_passes,
+    f32_slice_count,
     fold_weight_norm,
     prepare_weights,
     sdf_mlp,
@@ -132,7 +137,7 @@ def test_bf16_packing_holds_each_weight_transposed_in_its_k_range(decoders):
     _, _, port = decoders
     folded = fold_weight_norm(port)
     w = prepare_weights(folded, torch.bfloat16)
-    assert prepare_weights(folded, torch.float32).packed is None
+    assert prepare_weights(folded, torch.float32).packed[0].dtype == torch.float32
     stages, vectors = w.packed
     assert stages.dtype == torch.bfloat16 and stages.shape[1] == 128 * 64
     assert stages.is_contiguous()
@@ -245,7 +250,115 @@ def test_plain_output_layer_rounds_h3_to_bf16_before_the_f32_dot(decoders):
     assert (unrounded - want).abs().max().item() <= ATOL_BF16
 
 
-RAGGED_ROWS = (1, 63, 64, 65, 127, 128, 129, 255, 257, 4 * 64 + 37)
+def _f32_layers(folded):
+    """(width, k-range blocks) of the four hidden layers, as the f32 packing
+    lays them: layer 2 takes [h1 | x]."""
+    h1 = folded[2].shape[1]
+    return ([folded[0]], [folded[2]], [folded[4][:h1], folded[4][h1:]], [folded[6]])
+
+
+def _f32_unpack(folded, slices):
+    """Cut the f32 run of k-slices back into each layer's padded W, knowing
+    only the documented layout: per layer, per pass of f32_passes, slices of
+    SLICE_K rows x the pass's width, row-major, in k order."""
+    out, used = [], 0
+    for segs in _f32_layers(folded):
+        n = segs[0].shape[1]
+        k_pad = sum(-(-s.shape[0] // PAD_F32) * PAD_F32 for s in segs)
+        wp = torch.zeros(k_pad, -(-n // PAD_F32) * PAD_F32)
+        for n0, pw in f32_passes(n):
+            assert pw % PAD_F32 == 0 and 0 < pw <= PASS_N
+            wp[:, n0:n0 + pw] = slices[used:used + k_pad * pw].reshape(k_pad, pw)
+            used += k_pad * pw
+        out.append(wp)
+    return out, used
+
+
+def test_f32_packing_holds_each_weight_in_its_k_range(decoders):
+    """Widths pad to a multiple of 8 (223 -> 224); each k-range of a layer
+    starts at a multiple of 8; the padding is zeros; the vectors b0..b3 and
+    w4 are each zero-padded to a multiple of 8."""
+    _, _, port = decoders
+    folded = fold_weight_norm(port)
+    slices, vectors = prepare_weights(folded, torch.float32).packed
+    assert slices.dtype == vectors.dtype == torch.float32 and slices.dim() == 1
+    layers, used = _f32_unpack(folded, slices)
+    assert used == slices.numel()
+    h = [folded[i].shape[1] for i in (0, 2, 4, 6)]
+    assert f32_slice_count(port.in_dim, h) * SLICE_K == sum(
+        wp.shape[0] * len(f32_passes(n)) for wp, n in zip(layers, h))
+    for wp, segs in zip(layers, _f32_layers(folded)):
+        expect = torch.zeros_like(wp)
+        off = 0
+        for s in segs:
+            expect[off:off + s.shape[0], :s.shape[1]] = s
+            off += -(-s.shape[0] // PAD_F32) * PAD_F32
+        assert torch.equal(wp, expect)
+    off = 0
+    for v in (folded[1], folded[3], folded[5], folded[7], folded[8].reshape(-1)):
+        pad = -(-v.numel() // PAD_F32) * PAD_F32
+        assert torch.equal(vectors[off:off + v.numel()], v)
+        assert not vectors[off + v.numel():off + pad].any()
+        off += pad
+    assert off == vectors.numel()
+
+
+def test_f32_slice_walk_and_fused_output_dot_reproduce_plain(decoders):
+    """The f32 kernel's walk in PyTorch over the packed run: 32-row tiles,
+    k-major activations zero-padded to 8, per layer and pass the k-slices in
+    order (the skip layer's second k-range reads the input), f32
+    accumulation, bias and ReLU from the padded vectors; layer 3 is never
+    stored: each thread's columns (runs of 4, a run apart; 8 x 8 tiles on
+    passes over 256 wide, else 8 x 4) dot w4, and a row's partials add in
+    column-group order, then tanh.  Ragged rows (70 = 2 tiles
+    + 6) are zero-padded."""
+    _, _, port = decoders
+    folded = fold_weight_norm(port)
+    w = prepare_weights(folded, torch.float32)
+    slices, vectors = w.packed
+    h = [folded[i].shape[1] for i in (0, 2, 4, 6)]
+    x = torch.randn(70, port.in_dim, generator=torch.Generator().manual_seed(4))
+    rows = 32
+    pad = -x.shape[0] % rows
+    xt = torch.nn.functional.pad(x, (0, -port.in_dim % PAD_F32, 0, pad))
+    state = {"slice": 0, "vec": 0}
+
+    def walk(segments, n):
+        a = torch.cat(segments, dim=1)  # [rows, padded k]
+        n_pad = -(-n // PAD_F32) * PAD_F32
+        acc = torch.zeros(a.shape[0], n_pad)
+        for n0, pw in f32_passes(n):
+            for k0 in range(0, a.shape[1], SLICE_K):
+                sl = slices[state["slice"]:state["slice"] + SLICE_K * pw].reshape(SLICE_K, pw)
+                acc[:, n0:n0 + pw] += a[:, k0:k0 + SLICE_K] @ sl
+                state["slice"] += SLICE_K * pw
+        bias = vectors[state["vec"]:state["vec"] + n_pad]
+        state["vec"] += n_pad
+        return torch.relu(acc + bias), n_pad
+
+    h0, _ = walk([xt], h[0])
+    h1, _ = walk([h0], h[1])
+    h2, _ = walk([h1, xt], h[2])
+    h3, n3 = walk([h2], h[3])
+    assert state["slice"] == slices.numel()
+    w4 = vectors[state["vec"]:state["vec"] + n3]
+    dot = torch.zeros(xt.shape[0])
+    for n0, pw in f32_passes(h[3]):
+        tile = 8 if pw > 256 else 4
+        groups, run = pw // tile, pw // (tile // 4)
+        assert groups <= 64  # 4 row groups on the kernel's 256 threads
+        cols = [[4 * g + q * run + i for q in range(tile // 4) for i in range(4)]
+                for g in range(groups)]
+        assert sorted(c for cs in cols for c in cs) == list(range(pw))
+        for cs in cols:  # the threads of a row, in column-group order
+            idx = torch.tensor(cs) + n0
+            dot += (h3[:, idx] * w4[idx]).sum(dim=1)
+    got = torch.tanh(dot + w.plain[9])[:x.shape[0], None]
+    want = sdf_mlp_plain(x, w.plain)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+RAGGED_ROWS = (1, 31, 32, 33, 47, 48, 49, 63, 64, 65, 127, 128, 129, 255, 257, 4 * 64 + 37)
 
 
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs an NVIDIA card")
@@ -254,7 +367,7 @@ def test_kernel_matches_plain_on_card(decoders, dtype, atol):
     _, _, port = decoders
     x = torch.randn(max(RAGGED_ROWS), port.in_dim, generator=torch.Generator().manual_seed(0))
     weights = prepare_weights([w.cuda() for w in fold_weight_norm(port)], dtype)
-    for n in RAGGED_ROWS:  # around the kernel's 64-row tile
+    for n in RAGGED_ROWS:  # around the f32 (32-row) and bf16 (64-row) tiles
         xc = x[:n].to("cuda", dtype).contiguous()
         got = sdf_mlp(xc, weights)
         torch.cuda.synchronize()
