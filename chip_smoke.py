@@ -16,9 +16,11 @@ Phases, each printing one JSON line:
              by more than the tolerance.  The gather is also timed on its
              fine levels (0-2) and its coarse levels (3-4) alone.  The SDF
              MLP is also timed in f32 at the same eight row counts (the
-             field-guided train step's launches; f32_step_ms) and at the
-             largest alone (f32_ms).  The gather's backward is checked at the
-             train step's largest launch, f32 and bf16 maps, on a uniform, a
+             field-guided train step's launches; f32_step_ms), at the
+             largest alone (f32_ms), and with the f32 weight packing that
+             each field runs before its launches (f32_pack_ms,
+             f32_step_with_packing_ms).  The gather's backward is checked at
+             the train step's largest launch, f32 and bf16 maps, on a uniform, a
              clustered and a border grid, and timed per level group; its byte
              bound counts g and the grid read and d/dfeat written once (the
              f32 zero-fill of its global route is printed beside).
@@ -225,6 +227,7 @@ def check_sdf_mlp(device, batch: int, seed: int = 0):
                         "f32_ms": by_rows[rows_big], "f32_bound_ms": bound_for(rows_big)[0],
                         "f32_library_ms": lib_by_rows[rows_big],
                         "f32_plain_ms": plain_by_rows[rows_big], "f32_max_abs_err": err})
+                    f32_step.update(time_f32_packing(folded, x, step_rows))
                     res.update(f32_step)
                 else:
                     b_ms, b_by = bound_for(rows_big)
@@ -239,6 +242,35 @@ def check_sdf_mlp(device, batch: int, seed: int = 0):
                 raise AssertionError(f"sdf_mlp disagrees with its plain version, or a "
                                      f"bias would go unseen: {res}")
     return timed
+
+
+def time_f32_packing(folded, x, step_rows, iters: int = 10):
+    """The f32 weight packing (prepare_weights) that each field's forward
+    runs once before its launches, two a field-guided step, and which the
+    cuBLAS chain does not need: its device time, its host time per call
+    (enqueue only), and the device time of a step's f32 work as the kernel
+    does it, two packings and the eight launches."""
+    import torch
+
+    from hoisdf_torch.ops.kernels.sdf_mlp import prepare_weights, sdf_mlp
+
+    xs = [x[:rows].contiguous() for rows in step_rows]
+
+    def step():
+        for i, xr in enumerate(xs):
+            if i % (len(xs) // 2) == 0:  # each field packs its decoder once
+                weights = prepare_weights(folded, torch.float32)
+            sdf_mlp(xr, weights)
+
+    prepare_weights(folded, torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        prepare_weights(folded, torch.float32)
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return {"f32_pack_ms": time_ms(lambda: prepare_weights(folded, torch.float32)),
+            "f32_pack_host_ms": host_ms, "f32_step_with_packing_ms": time_ms(step)}
 
 
 PYRAMID = (("stride2", 128, 32), ("stride4", 64, 64), ("stride8", 32, 128),
@@ -885,7 +917,9 @@ def main() -> int:
                                       "step_plain_ms", "f32_ms", "f32_bound_ms",
                                       "f32_library_ms", "f32_plain_ms", "f32_max_abs_err",
                                       "f32_step_ms", "f32_step_bound_ms",
-                                      "f32_step_library_ms", "f32_step_plain_ms")}},
+                                      "f32_step_library_ms", "f32_step_plain_ms",
+                                      "f32_pack_ms", "f32_pack_host_ms",
+                                      "f32_step_with_packing_ms")}},
         {"name": "gather_lerp", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_TPU,
          "launches": launches["gather_lerp"], "launches_train": train_launches["gather_lerp"],

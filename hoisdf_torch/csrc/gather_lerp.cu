@@ -226,13 +226,21 @@ static_assert(kBwdChunk <= kBwdThreads, "a thread tabulates one point of a chunk
 
 // Shared memory of a shared-route block: one copy of the slice's map per
 // group, then a chunk's slice of g (f32, 16 channels a point), its corner
-// cells (int4) and weights (float4).
+// cells (int4) and weights (float4).  The copies take at most
+// HOISDF_BWD_COPIES_BYTES, the budget that the wrapper's plan sizes them to
+// (a macro from the build, so that the two agree).
+#ifndef HOISDF_BWD_COPIES_BYTES
+#error "build with -DHOISDF_BWD_COPIES_BYTES (hoisdf_torch/ops/kernels/build.py)"
+#endif
+constexpr int kBwdCopiesBytes = HOISDF_BWD_COPIES_BYTES;
 __host__ __device__ constexpr int copies_bytes(int cells, int slice, int copies) {
   return (copies * cells * slice * 4 + 15) / 16 * 16;
 }
-__host__ __device__ constexpr int shared_bytes(int cells, int slice, int copies) {
-  return copies_bytes(cells, slice, copies) + kBwdChunk * (kGroupLanes * 4 + 32);
+__host__ __device__ constexpr int shared_bytes(int copy_bytes) {
+  return copy_bytes + kBwdChunk * (kGroupLanes * 4 + 32);
 }
+static_assert(shared_bytes(kBwdCopiesBytes) <= kMaxSmem && kBwdCopiesBytes % 16 == 0,
+              "a shared-route block must fit the card's 227 KB");
 
 struct Corners {
   int i00, i01, i10, i11;  // cell indices
@@ -430,12 +438,11 @@ cudaError_t launch_bwd(const float* grid, const void* g, int b, int p, BwdLevels
       L.gl[L.n_global++] = lv;
     } else {
       shared_blocks += cdiv(lv.c, lv.slice);
-      smem = max(smem, shared_bytes(lv.h * lv.w, lv.slice, lv.copies));
+      smem = max(smem, shared_bytes(copies_bytes(lv.h * lv.w, lv.slice, lv.copies)));
     }
   }
   L.v_total = v;
   L.global_blocks = L.n_global > 0 ? cdiv(p, kBwdWarps) : 0;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const dim3 blocks(L.global_blocks + shared_blocks, b);
   const T* gt = static_cast<const T*>(g);
   auto kern = vec_ok ? gather_lerp_bwd_kernel<T, kVec> : gather_lerp_bwd_kernel<T, 1>;
@@ -566,7 +573,8 @@ extern "C" int gather_lerp_bwd_launch(const void* grid, const void* g, int b, in
     const int h = dims[3 * l], w = dims[3 * l + 1], c = dims[3 * l + 2];
     const int slice = plan[2 * l], copies = plan[2 * l + 1];
     if (slice < 0 || (slice > 0 && (slice > kGroupLanes || copies < 1 ||
-                                    copies > kBwdThreads / kGroupLanes || outs[l] == nullptr)))
+                                    copies > kBwdThreads / kGroupLanes || outs[l] == nullptr ||
+                                    copies_bytes(h * w, slice, copies) > kBwdCopiesBytes)))
       return cudaErrorInvalidValue;
     L.lv[l] = BwdLevel{h, w, c, off, 0, a_off, slice, copies, outs[l]};
     off += c;

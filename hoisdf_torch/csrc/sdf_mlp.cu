@@ -71,10 +71,10 @@
 //     forward) as k-slices of 8 rows x a pass's columns, zero-padded (widths
 //     and k-ranges to a multiple of 8), in the order the consumers walk
 //     them.  The producer brings each slice with one cp.async.bulk onto a
-//     ring of up to four 16 KB stages; the consumers wait on its "full"
-//     mbarrier and each warp releases it on its "empty" mbarrier.  There is
-//     no block barrier per slice, one per layer.  (Two stages time the same
-//     as four: the ring is deep enough.)
+//     ring of two 16 KB stages; the consumers wait on its "full" mbarrier and
+//     each warp releases it on its "empty" mbarrier.  There is no block
+//     barrier per slice, one per layer.  (Three and four stages time the same
+//     as two: the ring is deep enough.)
 //   - The skip concat is a second k-range of layer 2 that reads the resident
 //     input.  Layer 3's output is never stored: the 512 -> 1 dot with w4 is
 //     taken in its epilogue, summed over each thread's columns, then over the
@@ -463,7 +463,7 @@ constexpr int kSliceK = 8;                    // k per weight slice
 constexpr int kPadF32 = 8;                    // widths and k-ranges pad to a multiple of this
 constexpr int kPassN = 512;                   // output columns per pass, at most
 constexpr int kF32StageBytes = kSliceK * kPassN * 4;
-constexpr int kF32MaxStages = 4;
+constexpr int kF32Stages = 2;                 // stages in the ring
 constexpr int kRedLd = 65;                    // pitch of the output dot's partial sums
 
 struct F32Args {
@@ -472,8 +472,8 @@ struct F32Args {
   const float* vectors;  // b0..b3 and w4, each zero-padded to a multiple of kPadF32
   const float* b4;
   float* out;
-  int n_rows, in_dim, h[4], n_stages;
-  int off_x, off_a, off_b, off_red, off_bar;  // byte offsets into dynamic shared memory
+  int n_rows, in_dim, h[4];
+  int off_a, off_b, off_red, off_bar;  // byte offsets into dynamic shared memory
 };
 
 __device__ __forceinline__ void f32_barrier() {
@@ -488,9 +488,9 @@ struct F32Seg {
 };
 
 struct F32Ring {
-  uint32_t full, empty;  // barriers [n_stages]
+  uint32_t full, empty;  // barriers [kF32Stages]
   const float* data;     // stage buffers
-  int n_stages, stage, parity;
+  int stage, parity;
 };
 
 // One pass of pw columns from n0 (pass-relative column c is layer column
@@ -548,7 +548,7 @@ __device__ __forceinline__ void f32_pass(F32Ring& ring, F32Seg s0, F32Seg s1, in
       }
       __syncwarp();
       if (tid % 32 == 0) mbar_arrive(ring.empty + 8 * ring.stage);
-      if (++ring.stage == ring.n_stages) {
+      if (++ring.stage == kF32Stages) {
         ring.stage = 0;
         ring.parity ^= 1;
       }
@@ -608,14 +608,14 @@ __host__ __device__ constexpr int pad_k(int v) { return (v + kPadF32 - 1) / kPad
 __global__ void __launch_bounds__(kF32Threads, 1)
 sdf_mlp_f32_kernel(const F32Args A) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t full = smem_u32(smem + A.off_bar), empty = full + 8 * kF32MaxStages;
+  const uint32_t full = smem_u32(smem + A.off_bar), empty = full + 8 * kF32Stages;
   const int tid = threadIdx.x;
   int hp[4];
 #pragma unroll
   for (int l = 0; l < 4; ++l) hp[l] = pad_k(A.h[l]);
   const int in_pad = pad_k(A.in_dim);
   if (tid == 0) {
-    for (int s = 0; s < A.n_stages; ++s) {
+    for (int s = 0; s < kF32Stages; ++s) {
       mbar_init(full + 8 * s, 1);                       // the producer's expect_tx
       mbar_init(empty + 8 * s, kF32Consumers / 32);     // every consumer warp
     }
@@ -638,7 +638,7 @@ sdf_mlp_f32_kernel(const F32Args A) {
             mbar_expect_tx(full + 8 * stage, kSliceK * pw * 4);
             bulk_copy(data + stage * kF32StageBytes, src, kSliceK * pw * 4, full + 8 * stage);
             src += kSliceK * pw;
-            if (++stage == A.n_stages) {
+            if (++stage == kF32Stages) {
               stage = 0;
               parity ^= 1;
             }
@@ -649,7 +649,7 @@ sdf_mlp_f32_kernel(const F32Args A) {
   }
 
   // ---- consumer warps
-  float* x_s = reinterpret_cast<float*>(smem + A.off_x);
+  float* x_s = reinterpret_cast<float*>(smem + kF32Stages * kF32StageBytes);
   float* a_s = reinterpret_cast<float*>(smem + A.off_a);
   float* b_s = reinterpret_cast<float*>(smem + A.off_b);
   float* red_s = reinterpret_cast<float*>(smem + A.off_red);
@@ -663,7 +663,7 @@ sdf_mlp_f32_kernel(const F32Args A) {
   const float* v = A.vectors;
   const float* bias[4] = {v, v + hp[0], v + hp[0] + hp[1], v + hp[0] + hp[1] + hp[2]};
   const float* w4 = bias[3] + hp[3];
-  F32Ring ring{full, empty, reinterpret_cast<const float*>(smem), A.n_stages, 0, 0};
+  F32Ring ring{full, empty, reinterpret_cast<const float*>(smem), 0, 0};
   const F32Seg none{nullptr, 0}, sx{x_s, in_pad};
   float dot = 0.f;
   f32_layer<false>(ring, sx, none, hp[0], bias[0], nullptr, a_s, red_s, dot);
@@ -710,20 +710,14 @@ extern "C" int sdf_mlp_launch(const void* x, int dtype, int n, int in_dim,
     A.n_rows = n;
     A.in_dim = in_dim;
     for (int l = 0; l < 4; ++l) A.h[l] = h[l];
-    // the input, the wide buffer (layers 0 and 2 write it), the narrow one
-    // (layer 1), the output dot's partial sums and the barriers; then as many
-    // ring stages in front of them as fit
+    // the ring, the input, the wide buffer (layers 0 and 2 write it), the
+    // narrow one (layer 1), the output dot's partial sums and the barriers
     const int act = kF32Ld * (int)sizeof(float);
-    const int tail = (in_pad + max(hp[0], hp[2]) + hp[1]) * act +
-                     kF32Rows * kRedLd * (int)sizeof(float) + 2 * kF32MaxStages * 8;
-    A.n_stages = min(kF32MaxStages, (int)((kMaxSmem - tail) / kF32StageBytes));
-    if (tail > (int)kMaxSmem || A.n_stages < 2) return cudaErrorInvalidValue;
-    A.off_x = A.n_stages * kF32StageBytes;
-    A.off_a = A.off_x + in_pad * act;
+    A.off_a = kF32Stages * kF32StageBytes + in_pad * act;
     A.off_b = A.off_a + max(hp[0], hp[2]) * act;
     A.off_red = A.off_b + hp[1] * act;
     A.off_bar = A.off_red + (kF32Rows * kRedLd * (int)sizeof(float) + 15) / 16 * 16;
-    const size_t smem = (size_t)A.off_bar + 2 * kF32MaxStages * 8;
+    const size_t smem = (size_t)A.off_bar + 2 * kF32Stages * 8;
     if ((err = set_smem((const void*)sdf_mlp_f32_kernel, smem)) != cudaSuccess) return err;
     sdf_mlp_f32_kernel<<<cdiv(n, kF32Rows), kF32Threads, smem, s>>>(A);
     return cudaGetLastError();

@@ -26,8 +26,14 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("sdf_mlp.cu", "gather_lerp.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources; part of the stamp
 LIB = os.path.join(BUILD_DIR, "libhoisdf_kernels.so")
+# The shared memory that a shared-route block of the gather's backward gives
+# to its private copies of a map slice: the wrapper's plan sizes the copies to
+# it, and the kernel, built with it as a macro, checks at compile time that the
+# copies and its staging fit a block.
+BWD_COPIES_BYTES = 48 * 1024
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         f"-DHOISDF_BWD_COPIES_BYTES={BWD_COPIES_BYTES}")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

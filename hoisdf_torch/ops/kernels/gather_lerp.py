@@ -20,7 +20,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from hoisdf_torch.ops.kernels import launch_counts
-from hoisdf_torch.ops.kernels.build import library
+from hoisdf_torch.ops.kernels.build import BWD_COPIES_BYTES, library
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_LEVELS = 5
@@ -104,9 +104,6 @@ def _check_grid(grid: torch.Tensor, name: str) -> Tuple[int, int]:
 # BWD_COPIES_BYTES; the other levels take the global route.
 BWD_SHARED_MAX_CELLS = 256
 BWD_SLICE = 16
-BWD_COPIES_BYTES = 48 * 1024
-BWD_CHUNK = 256  # points whose corners and g a shared-route block stages at a time
-SMEM_LIMIT = 232448  # a block's shared memory on Hopper: 227 KB
 
 
 def bwd_plan(shapes: Sequence[Tuple[int, int, int]]) -> Tuple[Tuple[int, int], ...]:
@@ -122,14 +119,6 @@ def bwd_plan(shapes: Sequence[Tuple[int, int, int]]) -> Tuple[Tuple[int, int], .
     return tuple(plan)
 
 
-def bwd_shared_bytes(h: int, w: int, slice_: int, copies: int) -> int:
-    """Shared memory of a shared-route block (as the kernel's shared_bytes):
-    a copy of the slice's h*w cells per group, then a chunk's g (16 f32
-    channels a point) and its corner table (an int4 of cells and a float4 of
-    weights per point)."""
-    return -(-copies * h * w * slice_ * 4 // 16) * 16 + BWD_CHUNK * (16 * 4 + 32)
-
-
 def gather_lerp_bwd(grid: torch.Tensor, g: torch.Tensor,
                     shapes: Sequence[Tuple[int, int, int]], dtype: torch.dtype
                     ) -> List[torch.Tensor]:
@@ -138,8 +127,9 @@ def gather_lerp_bwd(grid: torch.Tensor, g: torch.Tensor,
     CPU tensors take :func:`gather_lerp_bwd_plain`.  On the card one launch
     covers every level, as :func:`bwd_plan` routes them: the shared route
     writes its levels whole in ``dtype``; the global route adds into a zeroed
-    f32 buffer of its levels alone, cast to ``dtype`` after.  Both add with
-    atomics, so the result is not bitwise repeatable."""
+    f32 buffer of its levels alone, cast to ``dtype`` after.  Only the global
+    route adds with atomics: its levels are not bitwise repeatable, the shared
+    route's are."""
     if grid.device.type == "cpu":
         return gather_lerp_bwd_plain(grid, g, shapes, dtype)
     if grid.device.type != "cuda":

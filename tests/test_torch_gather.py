@@ -23,10 +23,9 @@ from hoisdf_torch.ops.grid_sample import (
     pixels_to_grid,
     project_points,
 )
+from hoisdf_torch.ops.kernels.build import BWD_COPIES_BYTES
 from hoisdf_torch.ops.kernels.gather_lerp import (
-    SMEM_LIMIT,
     bwd_plan,
-    bwd_shared_bytes,
     gather_lerp,
     gather_lerp_bwd,
     gather_lerp_bwd_plain,
@@ -189,48 +188,43 @@ PYRAMID = {"stride2": (128, 128, 32), "stride4": (64, 64, 64), "stride8": (32, 3
            "stride16": (16, 16, 256), "stride32": (8, 8, 512)}
 
 
-def _bwd_blocks(batch, points, shapes, plan):
-    """What each block of the backward's launch covers, as the kernel cuts it:
-    (image, level, first channel, end channel, first point, end point).  A
-    global-route block takes 8 points of every global-route level, whole; a
-    shared-route block one channel slice of one level for all of the image's
-    points."""
-    blocks = []
-    glob = [i for i, (s, _) in enumerate(plan) if s == 0]
-    for b in range(batch):
-        if glob:
-            for p0 in range(0, points, 8):
-                blocks.extend((b, i, 0, shapes[i][2], p0, min(p0 + 8, points)) for i in glob)
-        for i, (s, _) in enumerate(plan):
-            if s:
-                blocks.extend((b, i, c0, min(c0 + s, shapes[i][2]), 0, points)
-                              for c0 in range(0, shapes[i][2], s))
-    return blocks
+def _bwd_parts(shapes, plan):
+    """The parts of d/dfeat that the plan assigns: (level, first channel, end
+    channel, copies) for each channel slice of a shared-route level, and the
+    whole of each global-route level (copies 0)."""
+    parts = []
+    for i, ((_, _, c), (s, copies)) in enumerate(zip(shapes, plan)):
+        if s:
+            parts.extend((i, c0, min(c0 + s, c), copies) for c0 in range(0, c, s))
+        else:
+            parts.append((i, 0, c, copies))
+    return parts
 
 
 @pytest.mark.parametrize("levels", [PYRAMID, LEVELS5, LEVELS_ODD],
                          ids=["pyramid", "tiny", "odd"])
 def test_bwd_plan_covers_every_image_level_channel_once(levels):
-    """The backward's launch plan: each (image, point, level, channel) lies in
-    exactly one block; every shared-route block fits 227 KB of shared memory;
-    at the production pyramid, stride16 and stride32 take the shared route
-    and stride2-8 the global one."""
+    """The backward's launch plan: each (level, channel) lies in exactly one
+    part, for every image alike; each shared-route block's private copies fit
+    the budget that the kernel is built with, and the kernel checks at compile
+    time that the budget and its staging fit 227 KB of shared memory; at the
+    production pyramid, stride16 and stride32 take the shared route and
+    stride2-8 the global one."""
     shapes = [tuple(d) for d in levels.values()]
-    b, p = 3, 21
     plan = bwd_plan(shapes)
     assert len(plan) == len(shapes)
     offs = np.cumsum([0] + [c for _, _, c in shapes])
-    cover = np.zeros((b, p, offs[-1]), np.int32)
-    for img, lv, c0, c1, p0, p1 in _bwd_blocks(b, p, shapes, plan):
+    cover = np.zeros(offs[-1], np.int32)
+    for lv, c0, c1, copies in _bwd_parts(shapes, plan):
         h, w, c = shapes[lv]
-        slice_, copies = plan[lv]
+        slice_ = plan[lv][0]
         assert 0 <= c0 < c1 <= c
         if slice_:
-            assert (p0, p1) == (0, p) and c1 - c0 <= slice_ <= 16 and 1 <= copies <= 16
-            assert bwd_shared_bytes(h, w, slice_, copies) <= SMEM_LIMIT
+            assert h * w <= 256 and c1 - c0 <= slice_ <= 16 and 1 <= copies <= 16
+            assert copies * h * w * slice_ * 4 <= BWD_COPIES_BYTES
         else:
-            assert (c0, c1) == (0, c) and copies == 0
-        cover[img, p0:p1, offs[lv] + c0:offs[lv] + c1] += 1
+            assert (c0, c1) == (0, c) and copies == 0 and h * w > 256
+        cover[offs[lv] + c0:offs[lv] + c1] += 1
     assert (cover == 1).all()
     if levels is PYRAMID:  # stride16: 3 copies of 16 KB; stride32: 12 of 4 KB
         assert plan == ((0, 0), (0, 0), (0, 0), (16, 3), (16, 12))
