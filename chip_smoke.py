@@ -24,9 +24,13 @@ Phases, each printing one JSON line:
              clustered and a border grid, and timed per level group; its byte
              bound counts g and the grid read and d/dfeat written once (the
              f32 zero-fill of its global route is printed beside).
-3. forward - the full-width dexycb eval forward, batch 2, f32 with TF32 off:
-             card (through the kernels) against CPU (plain versions), with
-             drawn SDF decoder biases.
+             The gather is also checked and timed on the ho3d preset's
+             DecoderBig pyramid (3,968 channels, no level staged), bf16 and
+             f32, bit-identical to its plain version.
+3. forward - the full-width eval forward of dexycb, ho3d (DecoderBig) and
+             ho3d_render (the IK head), batch 2, f32 with TF32 off: card
+             (through the kernels) against CPU (plain versions), with drawn
+             SDF decoder biases; one line each.
 4. serve   - the main path: a dexycb Predictor at bf16, batch 22, answers
              40 requests on each of the u8 and the f32 wire, in turn; p50
              and p90 latency, frames/s, peak memory, kernel launches per step
@@ -43,7 +47,16 @@ Phases, each printing one JSON line:
 6. train_check - one presampled train step on the card against the CPU at
              full width, batch 2, f32, TF32 off, dropout off, no jitter:
              every loss and the gradient norm of every parameter group.
-7. kernels - one line listing every kernel with the numbers this run took.
+7. eval    - each preset (dexycb, dexycb_full, ho3d, ho3d_render) at full
+             width, bf16, batch 22, u8 wire: the port's Evaluator over three
+             synthetic batches through make_eval_step on the card, by
+             evaluate_batches (the lookahead loop of evaluate.main): every
+             result, the eval step's device ms and the metrics' ms per batch
+             apart, peak memory, kernel launches (counts zeroed just before
+             the three batches).  The mesh metrics of dexycb_full and the IK
+             of ho3d_render run on the card.  Then eval_check: one batch of
+             card outputs through the Evaluator on the card and on the CPU.
+8. kernels - one line listing every kernel with the numbers this run took.
 
 Any failed check raises, and the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no result.
@@ -327,6 +340,64 @@ def check_gather_lerp(device, batch: int, points: int, seed: int = 1):
     return timed
 
 
+# DecoderBig's pyramid (the ho3d preset): 3968 channels, every level larger
+# per image than the kernel's shared-memory staging, so none is staged
+PYRAMID_HO3D = (("stride2", 128, 128), ("stride4", 64, 256), ("stride8", 32, 512),
+                ("stride16", 16, 1024), ("stride32", 8, 2048))
+
+
+def check_gather_lerp_ho3d(device, batch: int, points: int, seed: int = 3):
+    """The gather on the ho3d pyramid at a serving step's largest launch: the
+    kernel's unstaged branch at production width.  Bit-identical to its plain
+    version in f32 and bf16; timed in both against its byte bound, the plain
+    version and stock grid_sample per level + concat."""
+    import torch
+    import torch.nn.functional as F
+
+    from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp, gather_lerp_plain
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    grid = torch.rand(batch, points, 2, generator=g, device=device) * 2.2 - 1.1
+    maps32 = [torch.randn(batch, s, s, c, generator=g, device=device)
+              for _, s, c in PYRAMID_HO3D]
+    res = {"phase": "kernel", "kernel": "gather_lerp", "pyramid": "ho3d", "batch": batch,
+           "points": points, "channels": sum(c for _, _, c in PYRAMID_HO3D),
+           "levels": [list(lv[1:]) for lv in PYRAMID_HO3D]}
+    ok = True
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        maps = [m.to(dtype) for m in maps32]
+        got = gather_lerp(grid, maps)
+        torch.cuda.synchronize()
+        want = gather_lerp_plain(grid, maps)
+        err = (got.float() - want.float()).abs().max().item()
+        bitwise = bool(torch.equal(got, want))
+        ok = ok and bitwise and bool(torch.isfinite(got).all())
+        del want
+        size = got.element_size()
+        nbytes = got.numel() * size + sum(m.numel() * size for m in maps) + grid.numel() * 4
+        b_ms, b_by = bound(12.0 * got.numel(), H100_F32_FLOPS, nbytes)
+        del got
+        grid4 = grid[:, None].to(dtype)
+
+        def library():  # stock grid_sample per level + concat
+            return torch.cat([F.grid_sample(
+                m.permute(0, 3, 1, 2), grid4, mode="bilinear", padding_mode="border",
+                align_corners=True) for m in maps], 1)
+
+        res.update({f"{name}_max_abs_err": err, f"{name}_bitwise_equal": bitwise,
+                    f"{name}_ms": time_ms(lambda: gather_lerp(grid, maps), iters=5),
+                    f"{name}_plain_ms": time_ms(lambda: gather_lerp_plain(grid, maps), iters=3),
+                    f"{name}_library_ms": time_ms(library, iters=3),
+                    f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by,
+                    f"{name}_bytes": nbytes})
+        del maps
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError(f"gather_lerp on the ho3d pyramid is not bit-identical: {res}")
+    return res
+
+
 def _bwd_grid(kind: str, batch: int, points: int, g):
     """A uniform grid over the image and a little beyond; points packed into
     four small cells per image, as the cascade's selections are; or points
@@ -560,7 +631,7 @@ def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e
             finite = finite and bool(torch.isfinite(dv).all())
             errs[f"{name}.{key}"] = (dv - cv).abs().max().item() / max(cv.abs().max().item(), 1.0)
     worst = max(errs.values())
-    res = {"phase": "forward", "batch": batch_size, "dtype": "float32",
+    res = {"phase": "forward", "setting": cfg.setting, "batch": batch_size, "dtype": "float32",
            "overlap_hand": overlap["hand"], "overlap_obj": overlap["obj"],
            "max_scaled_err": worst, "worst_key": max(errs, key=errs.get), "tol": tol,
            "card_repeat_bitwise": repeat_equal, "cpu_seconds": cpu_s,
@@ -568,8 +639,194 @@ def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e
     res["ok"] = finite and overlap["hand"] == 1.0 and overlap["obj"] == 1.0 and worst <= tol
     emit(res)
     if not res["ok"]:
-        raise AssertionError("card and CPU disagree on the eval forward")
+        raise AssertionError(f"card and CPU disagree on the {cfg.setting} eval forward")
     return res
+
+
+# ---- phase 7: evaluation ---------------------------------------------------------
+
+EVAL_PRESETS = ("dexycb", "dexycb_full", "ho3d", "ho3d_render")
+TEMPLATE_VERTS = 1000  # vertices of a simplified YCB mesh, as the evaluator reads them
+
+
+def _eval_batches(cfg, n: int, batch_size: int, seed: int = 300):
+    """``n`` synthetic eval batches as ``evaluate_batches`` takes them: the
+    image on the u8 grid (so the host's f32 inputs are what the wire
+    decodes), random object templates, and for HO3D object classes that put
+    019_pitcher_base (class 5) in every batch."""
+    import numpy as np
+
+    from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
+    from hoisdf_torch.ops import wire
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        inputs, targets = split_inputs_targets(synthetic_batch(cfg, batch_size, seed=seed + i))
+        inputs["img"] = wire.quantize_image_u8(inputs["img"]).astype(np.float32) / 255.0
+        if cfg.dataset == "ho3d":
+            inputs["obj_cls"] = (np.arange(batch_size) + i) % 10
+        templates = (rng.randn(batch_size, TEMPLATE_VERTS, 3) * 0.05).astype(np.float32)
+        out.append((inputs, targets, templates, batch_size))
+    return out
+
+
+def _rel_errs(a, b):
+    return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b}
+
+
+def check_evaluator(cfg, preds, batch, mano, device, tol: float = 1e-5):
+    """``Evaluator.feed`` of one batch of card outputs, on the card and on
+    the CPU: every result within ``tol`` relative; dexycb_full's mesh EPE and
+    AUC within ``tol`` and its F-scores within 2/778 (a vertex whose nearest
+    distance lies at a threshold may count on one side only); HO3D's codalab
+    lists within 1e-4 m (the IK parity tolerance)."""
+    import numpy as np
+
+    from hoisdf_torch.evaluate import Evaluator
+
+    inputs, targets, templates, _ = batch
+    evs = []
+    for dev in (device, "cpu"):
+        ev = Evaluator(cfg, mano, device=dev)
+        ev.feed({k: v.to(dev) for k, v in preds.items()}, targets, inputs, templates)
+        evs.append(ev)
+    card, cpu = evs
+    errs = _rel_errs({k: v / card.total for k, v in card.results.items()},
+                     {k: v / cpu.total for k, v in cpu.results.items()})
+    res = {"setting": cfg.setting, "total": card.total, "max_rel_err": max(errs.values()),
+           "worst_key": max(errs, key=errs.get), "tol": tol}
+    ok = card.total == cpu.total and res["max_rel_err"] <= tol
+    if cfg.eval_mesh:
+        mesh_err = max(abs(a - b) / max(abs(b), 1e-12)
+                       for n in ("mesh_err", "mesh_err_aligned")
+                       for a, b in zip(getattr(card, n).get_measures(0.0, 0.05, 100)[:3],
+                                       getattr(cpu, n).get_measures(0.0, 0.05, 100)[:3]))
+        f_err = float(np.abs(np.asarray(card.f_scores + card.f_scores_aligned)
+                             - np.asarray(cpu.f_scores + cpu.f_scores_aligned)).max())
+        res.update(mesh_max_rel_err=mesh_err, fscore_max_abs_err=f_err, fscore_tol=2 / 778)
+        ok = ok and mesh_err <= tol and f_err <= 2 / 778
+    if cfg.dataset == "ho3d":
+        lists_err = max(float(np.abs(np.stack(getattr(card, n)) - np.stack(getattr(cpu, n))).max())
+                        for n in ("joint_list", "mesh_list"))
+        res.update(codalab_max_abs_err_m=lists_err, codalab_tol_m=1e-4)
+        ok = ok and lists_err <= 1e-4
+    res["ok"] = ok
+    return res
+
+
+def evaluate_preset(setting: str, device, batch_size: int = 22, n_batches: int = 3):
+    """The eval path of one preset at full published width, bf16, on the u8
+    wire: ``evaluate_batches`` (the lookahead loop of ``evaluate.main``)
+    drives ``make_eval_step`` and the ``Evaluator`` on the card over
+    ``n_batches`` synthetic batches, kernel counts zeroed just before and
+    read just after; the loop is held against a serial feed of the same
+    outputs.  The eval step and the metrics are timed apart, on one batch,
+    after a warmup: the step's device time from torch.profiler (it
+    synchronises inside, so CUDA events around it would read the host) and
+    its host time around a synchronize; the metrics' host time around
+    ``Evaluator.feed`` (which ends in its host transfer), and their device
+    time and top operators from the profiler.  Then ``check_evaluator`` on
+    that batch's card outputs."""
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.config import get_config
+    from hoisdf_torch.evaluate import Evaluator, evaluate_batches
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.ops import wire
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+    from hoisdf_torch.train import make_eval_step
+
+    cfg = get_config(setting, compute_dtype="bfloat16", transfer_dtype="uint8")
+    mano = ManoBuffers.from_model(make_synthetic_mano(0))
+    step = make_eval_step(cfg, build_biased_model(cfg), mano, device=device)
+    batches = _eval_batches(cfg, n_batches, batch_size)
+    inputs0, targets0, templates0, _ = batches[0]
+    wire0 = wire.encode_inputs({k: v for k, v in inputs0.items() if k != "obj_cls"})
+
+    scratch = Evaluator(cfg, mano, device=device)
+    preds0 = step(wire0)  # warmup of both
+    scratch.feed(preds0, targets0, inputs0, templates0)
+    torch.cuda.synchronize(device)
+    step_prof = device_breakdown(lambda: step(wire0), 1)
+    step_host, metric_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        step(wire0)
+        torch.cuda.synchronize(device)
+        step_host.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        scratch.feed(preds0, targets0, inputs0, templates0)
+        metric_ms.append((time.perf_counter() - t0) * 1e3)
+    metric_prof = device_breakdown(lambda: scratch.feed(preds0, targets0, inputs0, templates0), 1)
+
+    evaluator, recorded = Evaluator(cfg, mano, device=device), []
+
+    def recording_step(x):
+        recorded.append(step(x))
+        return recorded[-1]
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    evaluate_batches(cfg, recording_step, evaluator, batches, batch_size)
+    torch.cuda.synchronize(device)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(launch_counts)
+    # the lookahead's side stream against a serial feed of the same outputs
+    serial = Evaluator(cfg, mano, device=device)
+    for preds, (inputs, targets, templates, _) in zip(recorded, batches):
+        serial.feed(preds, targets, inputs, templates)
+    lookahead_err = max(_rel_errs(evaluator.results, serial.results).values())
+
+    results = {k: v / max(evaluator.total, 1) for k, v in evaluator.results.items()}
+    ho3d = cfg.dataset == "ho3d"
+    want_total = n_batches * batch_size - (
+        sum(int((b[0]["obj_cls"] == 5).sum()) for b in batches) if ho3d else 0)
+    res = {"phase": "eval", "setting": setting, "batch": batch_size, "batches": n_batches,
+           "compute_dtype": cfg.compute_dtype, "wire": cfg.transfer_dtype,
+           "template_verts": TEMPLATE_VERTS, "results": results, "total": evaluator.total,
+           "step_device_ms": step_prof["device_ms_per_step"],
+           "step_device_launches": step_prof["launches_per_step"],
+           "step_device_by_group": step_prof["by_group"],
+           "step_host_ms": float(np.median(step_host)), "step_host_ms_runs": step_host,
+           "metrics_ms": float(np.median(metric_ms)), "metrics_ms_runs": metric_ms,
+           "metrics_device_ms": metric_prof["device_ms_per_step"],
+           "metrics_device_launches": metric_prof["launches_per_step"],
+           "metrics_top_ops": metric_prof["top_ops"][:6],
+           "wall_ms_per_batch": wall_ms / n_batches, "lookahead_vs_serial_rel_err": lookahead_err,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+           "launches": counts, "launches_per_step": {k: v / n_batches for k, v in counts.items()},
+           "tf32": tf32_on()}
+    finite = all(np.isfinite(v) for v in results.values())
+    if cfg.eval_mesh:
+        m, _, auc, _, _ = evaluator.mesh_err.get_measures(0.0, 0.05, 100)
+        ma, _, auca, _, _ = evaluator.mesh_err_aligned.get_measures(0.0, 0.05, 100)
+        fs = np.asarray(evaluator.f_scores).mean(0).tolist()
+        fsa = np.asarray(evaluator.f_scores_aligned).mean(0).tolist()
+        res["mesh"] = {"epe_cm": m * 100, "auc": auc, "epe_aligned_cm": ma * 100,
+                       "auc_aligned": auca, "f5_f15": fs, "f5_f15_aligned": fsa}
+        finite = finite and bool(np.isfinite([m, auc, ma, auca, *fs, *fsa]).all())
+    if ho3d:
+        res["codalab_lists"] = len(evaluator.joint_list)
+        finite = finite and bool(np.isfinite(np.stack(evaluator.joint_list)).all()
+                                 and np.isfinite(np.stack(evaluator.mesh_list)).all())
+        finite = finite and len(evaluator.joint_list) == n_batches * batch_size
+    res["finite"] = finite
+    res["ok"] = (finite and not res["tf32"] and evaluator.total == want_total
+                 and counts["sdf_mlp"] > 0 and counts["gather_lerp"] > 0
+                 and lookahead_err <= 1e-6)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"eval of {setting} failed: a result is not finite, the count "
+                             "is wrong, TF32 is on, a kernel of the path never ran or the "
+                             "lookahead loop disagrees with a serial feed")
+    check = check_evaluator(cfg, preds0, batches[0], mano, device)
+    return res, check
 
 
 # ---- phase 4: serving ----------------------------------------------------------
@@ -639,6 +896,13 @@ def profile_breakdown(fn, steps: int, phase: str, **extra):
     """Device time by kernel name over ``steps`` calls of ``fn``
     (torch.profiler), grouped: each kernel of the port, the host-device
     copies, and everything else."""
+    out = {"phase": phase, "steps": steps, **extra, **device_breakdown(fn, steps)}
+    emit(out)
+    return out
+
+
+def device_breakdown(fn, steps: int):
+    """``profile_breakdown``'s numbers, without a line of their own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -665,13 +929,10 @@ def profile_breakdown(fn, steps: int, phase: str, **extra):
                    ev.key[:60]) for ev in prof.key_averages()
                   if ev.device_type == torch.autograd.DeviceType.CPU
                   and ev.key.startswith("aten::")), reverse=True)
-    out = {"phase": phase, "steps": steps, **extra,
-           "device_ms_per_step": sum(r[0] for r in rows),
-           "launches_per_step": sum(r[1] for r in rows), "by_group": groups,
-           "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:15]],
-           "top_ops": [{"ms": r[0], "calls": r[1], "op": r[2]} for r in ops[:12]]}
-    emit(out)
-    return out
+    return {"device_ms_per_step": sum(r[0] for r in rows),
+            "launches_per_step": sum(r[1] for r in rows), "by_group": groups,
+            "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:15]],
+            "top_ops": [{"ms": r[0], "calls": r[1], "op": r[2]} for r in ops[:12]]}
 
 
 def profile_step(predictor, frames_seed: int = 7):
@@ -891,11 +1152,13 @@ def main() -> int:
     train_cfg = get_config("dexycb")  # the preset: f32 compute, train batch 22
     sdf_timed = check_sdf_mlp(device, batch=serve_batch)
     gather_timed = check_gather_lerp(device, batch=serve_batch, points=3584)
+    gather_ho3d = check_gather_lerp_ho3d(device, batch=serve_batch, points=3584)
     # the gather backward's largest train launch: the merged token gather
     bwd_timed = check_gather_lerp_bwd(device, batch=train_cfg.train_batch_size,
                                       points=train_cfg.num_samp_hand + train_cfg.num_samp_obj)
 
-    compare_forward(get_config("dexycb", compute_dtype="float32"), 2, device)
+    for setting in ("dexycb", "ho3d", "ho3d_render"):
+        compare_forward(get_config(setting, compute_dtype="float32"), 2, device)
 
     serve_res, predictor = serve(get_config("dexycb", compute_dtype="bfloat16"),
                                  serve_batch, requests=40, device=device)
@@ -905,11 +1168,22 @@ def main() -> int:
     train_res, bwd_step = train(train_cfg, train_cfg.train_batch_size, device)
     compare_train_step(train_cfg, 2, device)
 
+    evals, checks = {}, []
+    for setting in EVAL_PRESETS:
+        evals[setting], check = evaluate_preset(setting, device, batch_size=serve_batch)
+        checks.append(check)
+    eval_check = {"phase": "eval_check", "batch": serve_batch, "presets": checks,
+                  "ok": all(c["ok"] for c in checks)}
+    emit(eval_check)
+    if not eval_check["ok"]:
+        raise AssertionError("the evaluator's results on the card and on the CPU disagree")
+
     launches, train_launches = serve_res["launches"], train_res["launches"]
     kernels = [
         {"name": "sdf_mlp", "route": "cuda", "source": "hoisdf_torch/csrc/sdf_mlp.cu",
          "replaces": SDF_TPU, "launches": launches["sdf_mlp"],
          "launches_train": train_launches["sdf_mlp"],
+         "launches_eval": {s: r["launches"]["sdf_mlp"] for s, r in evals.items()},
          "max_abs_err": sdf_timed["max_abs_err"], "ms": sdf_timed["ms"],
          "plain_ms": sdf_timed["plain_ms"], "bound_ms": sdf_timed["bound_ms"],
          "bound_by": sdf_timed["bound_by"], "library_ms": sdf_timed["library_ms"],
@@ -926,7 +1200,10 @@ def main() -> int:
          "max_abs_err": gather_timed["max_abs_err"],
          "ms": gather_timed["ms"], "plain_ms": gather_timed["plain_ms"],
          "bound_ms": gather_timed["bound_ms"], "bound_by": gather_timed["bound_by"],
-         "library_ms": gather_timed["library_ms"]},
+         "library_ms": gather_timed["library_ms"],
+         "launches_eval": {s: r["launches"]["gather_lerp"] for s, r in evals.items()},
+         **{f"ho3d_{k}": gather_ho3d[k] for k in gather_ho3d
+            if k.startswith(("bf16_", "f32_"))}},
         {"name": "gather_lerp_bwd", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_BWD_TPU,
          "launches": train_launches["gather_lerp_bwd"],

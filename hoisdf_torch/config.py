@@ -1,11 +1,10 @@
-"""Configuration of the PyTorch port (the DexYCB eval and train slices).
+"""Configuration of the PyTorch port: the four presets of the JAX package.
 
-A copy of ``hoisdf_tpu.config`` trimmed to the fields the eval forward and
-the train step read: the port imports nothing of the JAX package.  Field
-names and defaults are the JAX package's, so the same overrides configure
-both; a field the port does not have (an option of a path not ported yet) is
-refused by name, and so is ``use_inverse_kinematics=True`` (the ho3d_render
-head).
+A copy of ``hoisdf_tpu.config`` trimmed to the fields the eval forward, the
+evaluator and the train step read: the port imports nothing of the JAX
+package.  Field names and defaults are the JAX package's, so the same
+overrides configure both; a field the port does not have (an option of a path
+not ported yet) is refused by name.
 """
 
 from __future__ import annotations
@@ -14,18 +13,19 @@ import dataclasses
 import warnings
 from typing import Optional, Tuple
 
-# Settings this slice of the port serves (the dexycb eval forward: hier
-# sampler, merged field queries, small decoder).  The ho3d presets need
-# DecoderBig and the IK head, and dexycb_full the mesh metrics: not ported yet.
-SETTINGS = ("dexycb",)
+# Every preset of the JAX package.  All four evaluate; only dexycb trains
+# (train.py refuses the others by name).
+SETTINGS = ("ho3d", "ho3d_render", "dexycb", "dexycb_full")
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
     setting: str = "dexycb"
     dataset: str = "dexycb"
-    mano_model_path: Optional[str] = None  # npz of hoisdf_tpu.tools.convert_mano_pkl
+    simple_object_models_dir: Optional[str] = None  # the simplified YCB meshes
     output_dir: str = "outputs"
+    mano_model_path: Optional[str] = None  # npz of hoisdf_tpu.tools.convert_mano_pkl
+    mano_left_path: Optional[str] = None  # the left hand's npz (DexYCB's flipped samples)
 
     # ---- batch size --------------------------------------------------------
     train_batch_size: int = 22
@@ -37,6 +37,10 @@ class Config:
     # each band (main/config.py:64-69)
     random_ratio: Tuple[float, ...] = (0.3, 0.7)
     random_move_dist: Tuple[float, ...] = (0.03, 0.05, 0.07)
+    # ---- dataset-specific (main/config.py:70-85) -----------------------------
+    add_render: bool = False
+    small_dexycb: bool = True
+    obj_depth_mean_value: Optional[float] = None
     hand_sdf_scale: float = 3.1
     obj_sdf_scale: float = 3.1
     hand_cls_dist: float = 0.04
@@ -55,7 +59,8 @@ class Config:
     multiscale_layers: Tuple[str, ...] = (
         "stride2", "stride4", "stride8", "stride16", "stride32",
     )
-    use_inverse_kinematics: bool = False  # ho3d_render's IK head: not ported
+    use_big_decoder: bool = False  # the ho3d preset's full-width DecoderBig
+    use_inverse_kinematics: bool = False  # ho3d_render: one shape query, joints by IK
     input_img_shape: Tuple[int, int] = (256, 256)
     output_hm_shape: Tuple[int, int, int] = (128, 128, 128)
     sigma: float = 2.5 / 2
@@ -93,12 +98,18 @@ class Config:
     lambda_manoshape: float = 0.1
     mano_lambda_regulshape: float = 1e-6
 
+    eval_mesh: bool = False  # dexycb_full: the mesh EPE/AUC and F-scores
+
     compute_dtype: str = "float32"  # "bfloat16" for serving
     transfer_dtype: str = "float32"  # train/eval wire: "uint8" ships image bytes
     seed: int = 0
 
     @property
     def multiscale_dim(self) -> int:
+        # main/config.py:101-108 (at ResNet-50; DecoderBig passes the
+        # backbone's stride32 map through, so a smaller ResNet narrows it)
+        if self.use_big_decoder:
+            return 128 + 256 + 512 + 1024 + 2048
         return 32 + 64 + 128 + 256 + 512
 
     @property
@@ -110,9 +121,6 @@ class Config:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.transfer_dtype not in ("float32", "uint8"):
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}")
-        if self.use_inverse_kinematics:
-            raise ValueError("use_inverse_kinematics=True (the ho3d_render IK head) "
-                             "is not ported")
         # The stock object cascade is quality-gated at K <= 200 only; past the
         # gate fall back to the shared cascade, as the JAX package does.
         stock = type(self).__dataclass_fields__["hier_levels_obj"].default
@@ -130,14 +138,26 @@ SYNTHETIC_TINY_OVERRIDES = dict(
     resnet_type=18, hidden_dim=64, dim_feedforward=128, enc_layers=2,
     dec_layers=2, num_samp_hand=32, num_samp_obj=16,
     input_img_shape=(64, 64), output_hm_shape=(32, 32, 32), bins_n=16,
+    use_big_decoder=False,
 )
 
 
 def get_config(setting: str = "dexycb", **overrides) -> Config:
-    """Build a preset config (the dexycb presets of the JAX package)."""
+    """Build a preset config; the derivations of main/config.py:39-97."""
     if setting not in SETTINGS:
-        raise ValueError(f"setting {setting!r} is not ported (have {SETTINGS})")
-    base = dict(setting=setting, dataset="dexycb")
+        raise ValueError(f"unknown setting {setting!r} (have {SETTINGS})")
+    dataset = "ho3d" if "ho3d" in setting else "dexycb"
+    base = dict(
+        setting=setting,
+        dataset=dataset,
+        use_big_decoder=(setting == "ho3d"),
+        use_inverse_kinematics=(setting == "ho3d_render"),
+        eval_mesh=(setting == "dexycb_full"),
+    )
+    if dataset == "ho3d":
+        base.update(add_render=("render" in setting), obj_depth_mean_value=0.5244322)
+    else:
+        base.update(small_dexycb=("full" not in setting))
     base.update(overrides)
 
     def _tup(v):

@@ -26,6 +26,10 @@
 //     block, by bulk copies that complete on an mbarrier (coarsest first, a
 //     level only when the block's points would otherwise read more than the
 //     map); their corner rows then come from shared memory, not from L2.
+//     On DecoderBig's pyramid (the ho3d preset, 3,968 channels) no level fits
+//     (stride32 alone is 256 KB an image in bf16): every corner row comes
+//     from L2 and a block takes at most 2 * kWarps points, so that the
+//     blocks balance.
 //   - A warp takes a point at a time and its lanes walk the concatenated
 //     channel axis in 16-byte vectors (4 f32 or 8 bf16 channels), each lane
 //     finding its level from a small table, so every lane has work in every

@@ -6,7 +6,10 @@ train steps) or, with ``use_presampled``, from the batch's ground-truth-near
 points jittered uniformly in +-``dist_range`` (the other train steps).  Token
 features and cross-field queries share one merged pyramid gather
 (``merged_field_queries=True``), and the hand and object cascades run
-separately.  The module's mode is the train flag: ``model.train()`` puts
+separately.  The ho3d preset's pyramid comes from ``DecoderBig`` (3,968
+channels at ResNet-50), and ho3d_render's transformer decodes one shape query
+(the pose comes from IK on the voted joints, ``ops/ik.py``).  The module's
+mode is the train flag: ``model.train()`` puts
 BatchNorm on batch statistics and turns dropout on, whose masks (and the
 jitter) come from the ``generator`` passed to ``forward``.  Module and
 parameter names are the original PyTorch HOISDF's; the dead heads
@@ -30,7 +33,7 @@ import torch
 from torch import nn
 
 from hoisdf_torch.config import Config
-from hoisdf_torch.models.decoder import Decoder
+from hoisdf_torch.models.decoder import Decoder, DecoderBig
 from hoisdf_torch.models.layers import Linear
 from hoisdf_torch.models.resnet import ResNetBackbone
 from hoisdf_torch.models.sdf_decoder import SDFDecoder, WeightNormLinear
@@ -40,6 +43,7 @@ from hoisdf_torch.models.transformer import (
     VoteTransformer,
     get_mano_memory_mask,
     get_mano_tgt_mask,
+    get_manoshape_memory_mask,
 )
 from hoisdf_torch.ops.grid_sample import (
     multiscale_point_features,
@@ -87,7 +91,8 @@ class HOISDF(nn.Module):
         self.compute_dtype = getattr(torch, c.compute_dtype)
         backbone = ResNetBackbone(c.resnet_type)
         self.backbone_net = nn.ModuleDict({"resnet": backbone})
-        self.decoder_net = nn.ModuleDict({"resnet_decoder": Decoder(backbone.skip_channels)})
+        decoder = (DecoderBig if c.use_big_decoder else Decoder)(backbone.skip_channels)
+        self.decoder_net = nn.ModuleDict({"resnet_decoder": decoder})
         self.hand_sdf_decoder = SDFDecoder(c.hidden_dim, c.point_feat_size,
                                            use_classifier=c.classifier_branch,
                                            num_class=c.num_class)
@@ -98,24 +103,34 @@ class HOISDF(nn.Module):
                                            c.dec_layers, c.dim_feedforward, c.dropout)
         self.obj_transformer = VoteTransformer(c.hidden_dim, c.nheads, c.enc_layers // 2,
                                                c.dim_feedforward, c.dropout)
-        ms, hd = c.multiscale_dim, c.hidden_dim
+        # cfg.multiscale_dim at ResNet-50; DecoderBig's top level is the
+        # backbone's own stride32 map, narrower under a smaller ResNet
+        ms = sum(decoder.out_channels[name] for name in c.multiscale_layers)
+        hd = c.hidden_dim
         self.linear_transformerin = MLP(ms, (1024, 512, 256, hd - c.point_feat_size),
                                         relu_last=True)
         self.linear_sdfin = MLP(ms, (512, hd), relu_last=True)
         self.hand_sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
         self.obj_sigmoid_beta = nn.Parameter(torch.full((1,), 0.1))
-        self.mano_query_embed = nn.Embedding(c.mano_num_queries, hd)
-        self.linear_pose = MLP(hd, (hd, hd, 6))
+        # ho3d_render's IK head: one shape query, joints from the votes by IK
+        ik = c.use_inverse_kinematics
+        self.mano_query_embed = nn.Embedding(1 if ik else c.mano_num_queries, hd)
+        if not ik:
+            self.linear_pose = MLP(hd, (hd, hd, 6))
         self.linear_shape = MLP(hd, (hd, hd, 10))
         self.linear_handvote = MLP(hd, (hd, hd, hd, 20 * 3))
         self.linear_handcls = MLP(hd, (hd, hd, 20))
         self.linear_obj_rel_trans = MLP(hd, (hd, hd, 3))
         self.linear_obj_rot = MLP(hd, (hd, hd, 3))
-        self.register_buffer("tgt_mask", get_mano_tgt_mask(c.mano_num_queries,
-                                                           c.mano_shape_indx),
-                             persistent=False)
-        self.register_buffer("memory_mask", get_mano_memory_mask(
-            c.mano_num_queries, c.num_samp_hand, c.num_samp_obj), persistent=False)
+        if ik:
+            tgt_mask = None
+            memory_mask = get_manoshape_memory_mask(c.num_samp_hand, c.num_samp_obj)
+        else:
+            tgt_mask = get_mano_tgt_mask(c.mano_num_queries, c.mano_shape_indx)
+            memory_mask = get_mano_memory_mask(c.mano_num_queries, c.num_samp_hand,
+                                               c.num_samp_obj)
+        self.register_buffer("tgt_mask", tgt_mask, persistent=False)
+        self.register_buffer("memory_mask", memory_mask, persistent=False)
 
     # ---- field queries -----------------------------------------------------
 
@@ -301,8 +316,11 @@ class HOISDF(nn.Module):
         obj_enc_obj = obj_enc_out[:, :, : c.num_samp_obj]
         out["obj_rot"] = self.linear_obj_rot(obj_enc_obj).float()
         out["obj_trans"] = self.linear_obj_rel_trans(obj_enc_obj).float()
-        out["mano_pose6d"] = self.linear_pose(hs[:, :, : c.mano_shape_indx]).float()
-        out["mano_shape"] = self.linear_shape(hs[:, :, c.mano_shape_indx]).float()
+        if c.use_inverse_kinematics:
+            out["mano_shape"] = self.linear_shape(hs[:, :, 0]).float()  # [L,B,10]
+        else:
+            out["mano_pose6d"] = self.linear_pose(hs[:, :, : c.mano_shape_indx]).float()
+            out["mano_shape"] = self.linear_shape(hs[:, :, c.mano_shape_indx]).float()
 
         out["hand_points_notrans"] = hand_points_notrans
         out["hand_points"] = hand_points

@@ -102,3 +102,41 @@ def rot6d2mat(x: torch.Tensor) -> torch.Tensor:
     b2 = _normalize(a2 - torch.sum(b1 * a2, dim=1, keepdim=True) * b1)
     b3 = torch.linalg.cross(b1, b2, dim=1)
     return torch.stack((b1, b2, b3), dim=-1)
+
+
+def batch_rotprojs(mats: torch.Tensor) -> torch.Tensor:
+    """Project [..., 3, 3] matrices onto SO(3) by SVD: U V^T with U's last
+    column negated where det(U V^T) < 0 (manopth's rotproj)."""
+    u, _, vt = torch.linalg.svd(mats)
+    det = torch.linalg.det(u @ vt)[..., None, None]
+    u_fix = torch.cat([u[..., :2], u[..., 2:] * torch.sign(det)], dim=-1)
+    return u_fix @ vt
+
+
+def rigid_transform_3d(a: torch.Tensor, b: torch.Tensor):
+    """Similarity Kabsch of point sets a, b [..., N, 3]: scale c [...],
+    rotation R [..., 3, 3] and translation t [..., 3] with b ~ c R a + t
+    (common/metrics.py:188-204).  Where R = V U^T is a reflection, the last
+    singular value and the last row of V^T are negated, as the JAX package
+    does; R, c and t do not depend on the signs the SVD picks."""
+    n = a.shape[-2]
+    centroid_a = a.mean(dim=-2)
+    centroid_b = b.mean(dim=-2)
+    h = (a - centroid_a[..., None, :]).transpose(-1, -2) @ (b - centroid_b[..., None, :]) / n
+    u, s, v = torch.linalg.svd(h)  # v holds numpy's `V` (the rows of V^T)
+    r = v.transpose(-1, -2) @ u.transpose(-1, -2)
+    flip = (torch.linalg.det(r) < 0)[..., None]
+    sign = torch.where(flip, -1.0, 1.0).to(s.dtype)
+    s = torch.cat([s[..., :2], s[..., 2:] * sign], dim=-1)
+    v = torch.cat([v[..., :2, :], v[..., 2:, :] * sign[..., None]], dim=-2)
+    r = v.transpose(-1, -2) @ u.transpose(-1, -2)
+    var_a = a.var(dim=-2, unbiased=False).sum(dim=-1)
+    c = s.sum(dim=-1) / var_a
+    t = -(c[..., None, None] * r) @ centroid_a[..., None] + centroid_b[..., None]
+    return c, r, t[..., 0]
+
+
+def rigid_align(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Procrustes-align point sets a onto b, [..., N, 3] (common/metrics.py:207-210)."""
+    c, r, t = rigid_transform_3d(a, b)
+    return (c[..., None, None] * r @ a.transpose(-1, -2)).transpose(-1, -2) + t[..., None, :]

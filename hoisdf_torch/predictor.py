@@ -27,6 +27,9 @@ from hoisdf_torch.train import make_eval_step, resolve_device
 INPUT_KEYS = ("img", "cam_intr", "mano_root", "obj_center_cam", "bbox_hand", "bbox_obj")
 # Outputs a serving caller gets (all batch-leading), in packing order.
 SERVE_KEYS = ("mano_joints", "mano_verts", "hand_joints", "obj_rot", "obj_trans")
+# Under the IK head (ho3d_render) the step gives the shape, not the meshes;
+# the caller solves the pose from the voted joints (ops/ik.py).
+IK_SERVE_KEYS = ("mano_shape", "hand_joints", "obj_rot", "obj_trans")
 
 
 class StepStats:
@@ -53,7 +56,9 @@ class Predictor:
     """Inputs per frame: img [H,W,3] in [0,1] (or u8), cam_intr [3,3],
     mano_root [3], obj_center_cam [3], bbox_hand / bbox_obj [4].  Outputs:
     MANO joints/verts (root-relative, metres), voted hand joints, object
-    rotation (axis-angle) and relative translation per object point."""
+    rotation (axis-angle) and relative translation per object point; under
+    the IK head (ho3d_render) the MANO shape [10] instead of the meshes.
+    Every preset serves."""
 
     def __init__(self, cfg: Optional[Config] = None, batch_size: int = 8,
                  transfer_dtype: str = "float32", *, device="cuda",
@@ -79,10 +84,10 @@ class Predictor:
         if transfer_dtype == "uint8":
             self._template["img"] = wire.quantize_image_u8(self._template["img"])
         k_obj = self.cfg.num_samp_obj
-        shapes = {"mano_joints": (21, 3), "mano_verts": (778, 3), "hand_joints": (20, 3),
-                  "obj_rot": (k_obj, 3), "obj_trans": (k_obj, 3)}
-        self._pack_layout: List[Tuple[str, Tuple[int, ...]]] = [
-            (k, shapes[k]) for k in SERVE_KEYS]
+        shapes = {"mano_joints": (21, 3), "mano_verts": (778, 3), "mano_shape": (10,),
+                  "hand_joints": (20, 3), "obj_rot": (k_obj, 3), "obj_trans": (k_obj, 3)}
+        keys = IK_SERVE_KEYS if self.cfg.use_inverse_kinematics else SERVE_KEYS
+        self._pack_layout: List[Tuple[str, Tuple[int, ...]]] = [(k, shapes[k]) for k in keys]
         self.stats = StepStats()
 
     def _packed_step(self, batch: Mapping[str, np.ndarray]) -> torch.Tensor:

@@ -56,6 +56,16 @@ def disable_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def check_trainable(cfg: Config) -> None:
+    """Only the dexycb preset trains in the port so far; the others are
+    refused by name (their IK loss branch and DecoderBig's backward are the
+    next item of ROADMAP.md's Queue 1)."""
+    if cfg.setting != "dexycb":
+        raise NotImplementedError(
+            f"training the {cfg.setting!r} preset is not ported yet (ROADMAP.md, Queue 1: "
+            "train the ho3d presets); only 'dexycb' trains")
+
+
 def _to_device(arrays: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
     return {k: (torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray)
                 else v).to(dev, non_blocking=True) for k, v in arrays.items()}
@@ -108,6 +118,7 @@ def create_train_state(cfg: Config, model: HOISDF, steps_per_epoch: int = 1000, 
     """Move ``model`` to ``device`` and give it its optimizer.  With
     ``cfg.reference_init`` the decoder, SDF decoders and transformers are
     first re-drawn by the original's train-mode init, from ``cfg.seed``."""
+    check_trainable(cfg)
     dev = resolve_device(device)
     disable_tf32()
     if cfg.reference_init:
@@ -174,6 +185,7 @@ def make_train_step(cfg: Config, mano_buffers: ManoBuffers, *, device="cuda"
     at the step's learning rate and returns ``(state, losses)``, the losses
     (with ``total``) as detached scalars on the device.  The state is updated
     in place."""
+    check_trainable(cfg)
     dev = resolve_device(device)
     disable_tf32()
     mano = mano_buffers.to(dev)
@@ -232,7 +244,10 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
     image wire) and returns tensors on the device.
 
     ``supervise_sdf`` defaults to the DexYCB behaviour (also query the SDF at
-    the ground-truth sample points); pass False for serving."""
+    the ground-truth sample points); pass False for serving.  Under
+    ``use_inverse_kinematics`` the step returns the shape query's
+    ``mano_shape`` [B, 10] instead of the MANO meshes (the evaluator solves
+    the pose from the voted joints)."""
     dev = resolve_device(device)
     disable_tf32()
     supervise = cfg.dataset == "dexycb" if supervise_sdf is None else supervise_sdf
@@ -252,9 +267,13 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
                 "decoder_heads": out["decoder_heads"],
                 "hand_joints": vote_hand_joints(out),
             }
-            pred_mano = mano_head_pred(mano, out["mano_pose6d"][-1:], out["mano_shape"][-1:])
-            preds["mano_verts"] = pred_mano["verts3d"][-1]
-            preds["mano_joints"] = pred_mano["joints3d"][-1]
+            if cfg.use_inverse_kinematics:
+                preds["mano_shape"] = out["mano_shape"][-1]
+            else:  # MANO on the final decoder layer only, which eval reads
+                pred_mano = mano_head_pred(mano, out["mano_pose6d"][-1:],
+                                           out["mano_shape"][-1:])
+                preds["mano_verts"] = pred_mano["verts3d"][-1]
+                preds["mano_joints"] = pred_mano["joints3d"][-1]
         return preds
 
     return eval_step

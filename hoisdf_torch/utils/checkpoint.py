@@ -59,3 +59,39 @@ def restore_snapshot(model_dir: str, state, epoch: Optional[int] = None) -> Opti
     state.optimizer.load_state_dict(snap["optimizer"])
     state.step = int(snap["step"])
     return int(snap["epoch"])
+
+
+def _strip_prefix(network):
+    return {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v for k, v in network.items()}
+
+
+def load_network(model_dir: str, epoch: Optional[int] = None):
+    """The model state dict of snapshot ``epoch`` (default: the latest), or
+    None when the directory holds none."""
+    if epoch is None:
+        epoch = latest_epoch(model_dir)
+        if epoch is None:
+            return None
+    snap = torch.load(snapshot_path(model_dir, epoch), map_location="cpu", weights_only=True)
+    return _strip_prefix(snap["network"])
+
+
+# Keys of an original snapshot that the port's model does not have: the
+# unused model-level norm1, the dead heads linear_objvote / linear_objcls, and
+# the MANO layer's buffers (hoisdf_tpu/tools/convert_torch_ckpt.py:33-39).
+# BatchNorm counters are dropped too and taken from the model, so a state dict
+# without them loads as well.
+_ORIGINAL_SKIP = re.compile(
+    r"^(norm1\.|linear_objvote\.|linear_objcls\.|mano_head\.mano_layer\.)|num_batches_tracked$")
+
+
+def load_original_state(path: str, model: torch.nn.Module):
+    """An original ``snapshot_*.pth.tar`` (its ``network`` entry, or a bare
+    state dict) as a state dict for ``model.load_state_dict(...,
+    strict=True)``."""
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    network = raw.get("network", raw)
+    state = {k: v for k, v in _strip_prefix(network).items() if not _ORIGINAL_SKIP.search(k)}
+    state.update({k: v for k, v in model.state_dict().items()
+                  if k.endswith("num_batches_tracked")})
+    return state

@@ -70,15 +70,17 @@ def _backbone_key(path: Tuple[str, ...], stat: bool) -> str:
     return base + sub + "." + bn[path[3]]
 
 
-def _decoder_key(path: Tuple[str, ...], stat: bool) -> str:
+def _decoder_key(path: Tuple[str, ...], stat: bool, head_depth: int) -> str:
+    """``head_depth``: hidden convs of each head (1 in Decoder, 2 in DecoderBig)."""
     pre = "decoder_net.resnet_decoder."
     bn = _BN_STAT if stat else _BN_PARAM
     name = path[0]
     if name == "heads":
         stem, _, tail = path[1].rpartition("_")
         head = _HEAD_TO_TORCH[stem]
-        if tail == "out":  # the small decoder's heads have one hidden conv
-            return f"{pre}{head}.3." + ("weight" if path[2] == "kernel" else "bias")
+        if tail == "out":
+            leaf = "weight" if path[2] == "kernel" else "bias"
+            return f"{pre}{head}.{3 * head_depth}.{leaf}"
         k = int(tail)
         if path[2] == "conv":
             return f"{pre}{head}.{3 * k}." + ("weight" if path[3] == "kernel" else "bias")
@@ -113,7 +115,7 @@ def _transformer_entry(top: str, path: Tuple[str, ...], val: np.ndarray):
     return f"{top}.{stack}.{path[1]}.{leaf}", val
 
 
-def _entry(path: Tuple[str, ...], v: np.ndarray, stat: bool):
+def _entry(path: Tuple[str, ...], v: np.ndarray, stat: bool, head_depth: int):
     top, rest = path[0], path[1:]
     if top == "backbone":
         return _backbone_key(rest, stat), (_conv(v) if v.ndim == 4 else v)
@@ -121,7 +123,7 @@ def _entry(path: Tuple[str, ...], v: np.ndarray, stat: bool):
         if v.ndim == 4:
             deconv = rest[0].startswith("deconv") and rest[1] == "deconv"
             v = _deconv(v) if deconv else _conv(v)
-        return _decoder_key(rest, stat), v
+        return _decoder_key(rest, stat, head_depth), v
     if top.endswith("_sdf_decoder"):
         layer, leaf = rest
         if leaf == "g":
@@ -147,11 +149,14 @@ def _entry(path: Tuple[str, ...], v: np.ndarray, stat: bool):
 
 
 def state_dict_numpy_from_jax(params: Mapping, batch_stats: Mapping) -> Dict[str, np.ndarray]:
-    """The flax trees as original-layout numpy arrays (no BN counters)."""
+    """The flax trees as original-layout numpy arrays (no BN counters).  The
+    decoder's kind shows in its heads: DecoderBig's have two hidden convs."""
+    heads = params.get("decoder_net", {}).get("heads", {})
+    head_depth = sum(1 for k in heads if k.startswith("hm_") and k != "hm_out")
     state: Dict[str, np.ndarray] = {}
     for tree, stat in ((params, False), (batch_stats, True)):
         for path, v in _leaves(tree):
-            key, val = _entry(path, v, stat)
+            key, val = _entry(path, v, stat, head_depth)
             state[key] = val
     return state
 

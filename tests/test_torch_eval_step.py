@@ -29,11 +29,7 @@ from hoisdf_tpu.data.synthetic import split_inputs_targets, synthetic_batch
 from hoisdf_tpu.mano.layer import ManoBuffers as JaxManoBuffers
 from hoisdf_tpu.train import make_eval_step as jax_make_eval_step
 
-from torch_port_util import configs, init_jax, perturb_batch_stats
-
-TOL = dict(atol=1e-4, rtol=1e-4)
-HAND_KEYS = ("hand_points_notrans", "hand_off", "hand_cls")
-OBJ_KEYS = ("obj_rot", "obj_trans")
+from torch_port_util import assert_eval_matches_jax, configs, init_jax, perturb_batch_stats
 
 
 @pytest.fixture(scope="module")
@@ -59,43 +55,6 @@ def _port_step(pcfg, state, mano, supervise):
                           supervise_sdf=supervise, device="cpu")
 
 
-def _hand_ids(notrans, cfg):
-    step = 2.0 / (cfg.bins_n - 1)
-    ijk = np.rint((notrans.astype(np.float64) * cfg.hand_sdf_scale + 1.0) / step).astype(int)
-    return (ijk[..., 0] * cfg.bins_n + ijk[..., 1]) * cfg.bins_n + ijk[..., 2]
-
-
-def _sorted_rows(v, ids):
-    order = np.argsort(ids, axis=1)
-    axis = 2 if v.ndim == 4 else 1
-    idx = order[None, ..., None] if v.ndim == 4 else order[..., None]
-    return np.take_along_axis(v, idx, axis=axis)
-
-
-def _assert_matches_jax(got, want, cfg):
-    assert set(got) == set(want)
-    ids_g = _hand_ids(got["hand_points_notrans"], cfg)
-    ids_w = _hand_ids(want["hand_points_notrans"], cfg)
-    for b in range(ids_g.shape[0]):
-        assert set(ids_g[b]) == set(ids_w[b]), "selected hand points differ"
-    for k, w in want.items():
-        g = got[k]
-        assert g.shape == w.shape and g.dtype == np.float32, k
-        if k in HAND_KEYS:
-            g, w = _sorted_rows(g, ids_g), _sorted_rows(w, ids_w)
-        elif k in OBJ_KEYS:
-            continue
-        np.testing.assert_allclose(g, w, err_msg=k, **TOL)
-    # per-object-point rows: a one-to-one nearest-neighbour match
-    g_rows = np.concatenate([got[k] for k in OBJ_KEYS], -1)
-    w_rows = np.concatenate([want[k] for k in OBJ_KEYS], -1)
-    for b in range(g_rows.shape[0]):
-        d = np.abs(g_rows[b][:, None] - w_rows[b][None]).max(-1)
-        match = d.argmin(1)
-        assert len(set(match)) == len(match), "object rows do not pair up"
-        np.testing.assert_allclose(g_rows[b], w_rows[b][match], **TOL)
-
-
 @pytest.mark.parametrize("supervise", [False, True])
 def test_eval_step_matches_jax(setup, supervise):
     """One JAX reference (supervise_sdf=False) serves both port settings: the
@@ -103,7 +62,7 @@ def test_eval_step_matches_jax(setup, supervise):
     pcfg, state, mano, inputs, want = setup
     step = _port_step(pcfg, state, mano, supervise)
     got = {k: v.numpy() for k, v in step(inputs).items()}
-    _assert_matches_jax(got, want, pcfg)
+    assert_eval_matches_jax(got, want, pcfg)
 
 
 def test_u8_wire_bit_identical_and_predictor_matches_eval_step(setup):

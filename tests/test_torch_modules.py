@@ -313,11 +313,13 @@ def test_synthetic_inputs_are_the_jax_packages_draws(tiny):
 # ---- config ----------------------------------------------------------------
 
 def test_config_fields_are_the_jax_packages_and_unported_presets_refuse():
-    got = get_config("dexycb", compute_dtype="bfloat16")
-    want = jax_get_config("dexycb", compute_dtype="bfloat16")
-    for f in got.__dataclass_fields__:
-        assert getattr(got, f) == getattr(want, f), f
-    assert got.multiscale_dim == want.multiscale_dim
-    for setting in ("dexycb_full", "ho3d", "ho3d_render"):
-        with pytest.raises(ValueError, match="not ported"):
-            get_config(setting)
+    """Every preset derives the JAX package's fields; a setting neither
+    package has is refused."""
+    for setting in ("dexycb", "dexycb_full", "ho3d", "ho3d_render"):
+        got = get_config(setting, compute_dtype="bfloat16")
+        want = jax_get_config(setting, compute_dtype="bfloat16")
+        for f in got.__dataclass_fields__:
+            assert getattr(got, f) == getattr(want, f), (setting, f)
+        assert got.multiscale_dim == want.multiscale_dim, setting
+    with pytest.raises(ValueError, match="unknown setting"):
+        get_config("freihand")
