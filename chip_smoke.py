@@ -30,7 +30,8 @@ Phases, each printing one JSON line:
 3. forward - the full-width eval forward of dexycb, ho3d (DecoderBig) and
              ho3d_render (the IK head), batch 2, f32 with TF32 off: card
              (through the kernels) against CPU (plain versions), with drawn
-             SDF decoder biases; one line each.
+             SDF decoder biases; one line each, with whether two card
+             forwards are bitwise equal.
 4. serve   - the main path: a dexycb Predictor at bf16, batch 22, answers
              40 requests on each of the u8 and the f32 wire, in turn; p50
              and p90 latency, frames/s, peak memory, kernel launches per step
@@ -46,8 +47,24 @@ Phases, each printing one JSON line:
              largest).  TF32 stays off, as the port's entry points set it.
 6. train_check - one presampled train step on the card against the CPU at
              full width, batch 2, f32, TF32 off, dropout off, no jitter:
-             every loss and the gradient norm of every parameter group.
-7. eval    - each preset (dexycb, dexycb_full, ho3d, ho3d_render) at full
+             every loss and the gradient norm of every parameter group, the
+             card's ReLUs passing the elements that the CPU's passed
+             (differing from its own decisions at near-ties only).
+   Then the same two phases (without the profile) for ho3d, whose DecoderBig
+   runs the gather's backward at 3,968 channels, and ho3d_render, which
+   trains the IK head's shape losses; before them the backward is checked on
+   the ho3d pyramid as on the dexycb one (`"pyramid": "ho3d"` kernel lines),
+   and each train phase holds and times it on one field-guided step's
+   launches.  The train, train_check and kernel lines carry `setting`.
+7. data    - DexYCB and HO3D from disk: trees in the original's layout at
+             640 x 480 (tests/torch_data_fixtures.py) in a temporary
+             directory; the loader timed in thread and process mode beside
+             the dexycb train step; train_loop.main trains dexycb at full
+             width for three iterations with the test split's eval at its
+             snapshot; evaluate.main evaluates that snapshot on the DexYCB
+             test split and random weights on the HO3D evaluation split (the
+             codalab JSON); outputs present and finite, kernels launched.
+8. eval    - each preset (dexycb, dexycb_full, ho3d, ho3d_render) at full
              width, bf16, batch 22, u8 wire: the port's Evaluator over three
              synthetic batches through make_eval_step on the card, by
              evaluate_batches (the lookahead loop of evaluate.main): every
@@ -56,7 +73,9 @@ Phases, each printing one JSON line:
              the three batches).  The mesh metrics of dexycb_full and the IK
              of ho3d_render run on the card.  Then eval_check: one batch of
              card outputs through the Evaluator on the card and on the CPU.
-8. kernels - one line listing every kernel with the numbers this run took.
+9. kernels - one line listing every kernel with the numbers this run took
+             (the backward's `ho3d_*` fields from the ho3d train step, and
+             every kernel's launches per preset's train phase).
 
 Any failed check raises, and the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no result.
@@ -65,6 +84,7 @@ Weights are random, made from a seed; MANO is the synthetic stand-in.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -492,9 +512,11 @@ def bwd_error(grid, grad, shapes, dtype):
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
 
 
-def check_gather_lerp_bwd(device, batch: int, points: int, seed: int = 2):
+def check_gather_lerp_bwd(device, batch: int, points: int, seed: int = 2,
+                          pyramid=PYRAMID, pyramid_name: str = "dexycb"):
     """The gather's backward kernel against its plain version (the 4-corner
-    index_add_) at the train step's largest launch, f32 and bf16 maps, on a
+    index_add_) at the train step's largest launch on ``pyramid`` (the
+    dexycb one, 992 channels, or DecoderBig's, 3,968), f32 and bf16 maps, on a
     uniform, a clustered and a border grid.  The kernel adds with f32 atomics
     in no fixed order: f32 results must agree within 1e-5 of the largest
     |d/dfeat| (or 1e-5 absolute below 1), bf16 results within one bf16
@@ -502,8 +524,10 @@ def check_gather_lerp_bwd(device, batch: int, points: int, seed: int = 2):
     in f32; the train phase times the kernel on a train step's own grid."""
     import torch
 
+    from hoisdf_torch.ops.kernels.gather_lerp import bwd_plan
+
     g = torch.Generator().manual_seed(seed)
-    shapes = [(s, s, c) for _, s, c in PYRAMID]
+    shapes = [(s, s, c) for _, s, c in pyramid]
     c_total = sum(c for _, _, c in shapes)
     grad32 = torch.randn(batch, points, c_total, generator=g).to(device)
     timed, errs = {}, {}
@@ -514,8 +538,9 @@ def check_gather_lerp_bwd(device, batch: int, points: int, seed: int = 2):
             abs_err, err, finite = bwd_error(grid, grad32.to(dtype), shapes, dtype)
             ok = finite and err <= BWD_TOL[name]
             errs[f"{kind}/{name}"] = abs_err
-            res = {"phase": "kernel", "kernel": "gather_lerp_bwd", "grid": kind,
-                   "batch": batch, "points": points, "channels": c_total,
+            res = {"phase": "kernel", "kernel": "gather_lerp_bwd", "pyramid": pyramid_name,
+                   "grid": kind, "batch": batch, "points": points, "channels": c_total,
+                   "plan": bwd_plan(shapes),
                    "dtype": name, "max_abs_err": abs_err, "max_scaled_err": err,
                    "tol_scaled": BWD_TOL[name], "ok": ok}
             if kind != "border" and dtype == torch.float32:
@@ -579,7 +604,8 @@ def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e
     The selected lattice points must agree as sets.  Per-point outputs are
     compared after sorting by lattice id: the order inside the selection
     follows |sdf|, whose near-ties can order differently when sums are taken
-    in another order.  Errors are scaled by max(1, max |cpu value|)."""
+    in another order.  Errors are scaled by max(1, max |cpu value|).  Two
+    forwards on the card must be bitwise equal."""
     import torch
 
     from hoisdf_torch.data.synthetic import synthetic_batch
@@ -636,14 +662,16 @@ def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e
            "max_scaled_err": worst, "worst_key": max(errs, key=errs.get), "tol": tol,
            "card_repeat_bitwise": repeat_equal, "cpu_seconds": cpu_s,
            "finite": finite, "errors": errs}
-    res["ok"] = finite and overlap["hand"] == 1.0 and overlap["obj"] == 1.0 and worst <= tol
+    res["ok"] = (finite and overlap["hand"] == 1.0 and overlap["obj"] == 1.0 and worst <= tol
+                 and repeat_equal)
     emit(res)
     if not res["ok"]:
-        raise AssertionError(f"card and CPU disagree on the {cfg.setting} eval forward")
+        raise AssertionError(f"card and CPU disagree on the {cfg.setting} eval forward, or two "
+                             "card forwards differ")
     return res
 
 
-# ---- phase 7: evaluation ---------------------------------------------------------
+# ---- phase 8: evaluation ---------------------------------------------------------
 
 EVAL_PRESETS = ("dexycb", "dexycb_full", "ho3d", "ho3d_render")
 TEMPLATE_VERTS = 1000  # vertices of a simplified YCB mesh, as the evaluator reads them
@@ -988,7 +1016,7 @@ def capture_bwd_launches(run):
     return seen
 
 
-def time_bwd_in_step(run, batch_size: int):
+def time_bwd_in_step(run, batch_size: int, setting: str = "dexycb", pyramid_name: str = "dexycb"):
     """The gather's backward on the grids and gradients of one train step:
     its largest launch (the merged token gather) timed as the kernel line
     quotes it, each launch's time beside the step profile's, and each held
@@ -1006,7 +1034,9 @@ def time_bwd_in_step(run, batch_size: int):
             raise AssertionError(f"gather_lerp_bwd disagrees with its plain version on a train "
                                  f"step's launch of {grid.shape[1]} points: {err} > {tol}")
     grid, grad, shapes, dtype = max(launches, key=lambda a: a[0].shape[1])
-    res = {"phase": "kernel", "kernel": "gather_lerp_bwd", "grid": "field_guided train step",
+    res = {"phase": "kernel", "kernel": "gather_lerp_bwd", "pyramid": pyramid_name,
+           "setting": setting, "grid": "field_guided train step",
+           "launches_per_step": len(launches),
            "batch": batch_size, "points": grid.shape[1], "channels": grad.shape[-1],
            "dtype": str(dtype)[6:], "max_abs_err": max(errs),
            "points_by_launch": [a[0].shape[1] for a in launches], "ms_by_launch": ms_by_launch,
@@ -1015,10 +1045,13 @@ def time_bwd_in_step(run, batch_size: int):
     return res
 
 
-def train(cfg, batch_size: int, device, steps: int = 3, seed: int = 0):
-    """The main train path: presampled and field-guided steps at full width,
-    the branch and the jitter distance from presample_gate (p = 0.0 and 0.9
-    at the point-sampling epoch, halfway through it)."""
+def train(cfg, batch_size: int, device, steps: int = 3, seed: int = 0, profile: bool = True):
+    """The main train path of ``cfg``'s preset: presampled and field-guided
+    steps at full width, the branch and the jitter distance from
+    presample_gate (p = 0.0 and 0.9 at the point-sampling epoch, halfway
+    through it).  With ``profile``, a torch.profiler breakdown of one
+    field-guided step; then the gather's backward held and timed on one
+    field-guided step's launches."""
     import numpy as np
     import torch
 
@@ -1040,9 +1073,8 @@ def train(cfg, batch_size: int, device, steps: int = 3, seed: int = 0):
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
 
-    res = {"phase": "train", "batch": batch_size, "compute_dtype": cfg.compute_dtype,
-           "steps_per_branch": steps,
-           "tf32": tf32_on()}
+    res = {"phase": "train", "setting": cfg.setting, "batch": batch_size,
+           "compute_dtype": cfg.compute_dtype, "steps_per_branch": steps, "tf32": tf32_on()}
     counts_all = {k: 0 for k in launch_counts}
     finite = True
     for name, (pre, dist) in branches.items():
@@ -1070,62 +1102,339 @@ def train(cfg, batch_size: int, device, steps: int = 3, seed: int = 0):
                                                    for b, keys in need.items() for k in keys)
     emit(res)
     if not res["ok"]:
-        raise AssertionError("train phase failed: TF32 is on, a loss is not finite or a "
-                             "kernel never ran")
+        raise AssertionError(f"train phase of {cfg.setting} failed: TF32 is on, a loss is not "
+                             "finite or a kernel never ran")
     pre, dist = branches["field_guided"]
-    profile_breakdown(lambda: step(state, *batches[0], gen, dist, use_presampled=pre), 1,
-                      "train_profile", branch="field_guided", batch=batch_size)
+    if profile:
+        profile_breakdown(lambda: step(state, *batches[0], gen, dist, use_presampled=pre), 1,
+                          "train_profile", setting=cfg.setting, branch="field_guided",
+                          batch=batch_size)
     bwd = time_bwd_in_step(lambda: step(state, *batches[0], gen, dist, use_presampled=pre),
-                           batch_size)
+                           batch_size, cfg.setting, "ho3d" if cfg.use_big_decoder else "dexycb")
     return res, bwd
 
 
 SCALAR_GROUPS = ("hand_sigmoid_beta", "obj_sigmoid_beta")
+# a ReLU input within this share of its call's largest |x| is a near-tie: on the
+# H100 the card's own decisions differ from the CPU's up to 1.1e-4 of it
+TIE_REL = 1e-3
+
+
+def relu_pattern(masks=None):
+    """A dispatch mode over every ReLU (``aten::relu``, ``aten::relu_``), in
+    call order.  Without ``masks`` it records which elements pass (x > 0) into
+    ``.masks`` (on the host; None for a call outside autograd, such as the
+    point sampler's, whose rows need not come in the same order on another
+    run).  With them it imposes them: each call passes exactly the recorded
+    elements (a passing element below zero is lifted to the smallest normal
+    float, so that the backward, which reads the output, lets it through),
+    and ``.ties`` notes for each call how many of its own decisions differ
+    from the recorded ones, the largest |x| among those, and the call's
+    largest |x| and size."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    relus = (torch.ops.aten.relu.default, torch.ops.aten.relu_.default)
+
+    class ReluPattern(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.masks = [] if masks is None else masks
+            self.ties = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func not in relus:
+                return func(*args, **(kwargs or {}))
+            x = args[0].clone()  # relu_ overwrites its input
+            out = func(*args, **(kwargs or {}))
+            own = x > 0
+            if masks is None:
+                self.masks.append(own.cpu() if torch.is_grad_enabled() else None)
+                return out
+            i = len(self.ties)
+            if i >= len(masks) or (masks[i] is not None) != torch.is_grad_enabled() or (
+                    masks[i] is not None and masks[i].shape != x.shape):
+                raise AssertionError("the ReLU calls differ from the recorded run's")
+            if masks[i] is None:
+                self.ties.append((0, 0.0, 0.0, 0))
+                return out
+            want = masks[i].to(x.device)
+            differ = own != want
+            mag = x.abs()
+            self.ties.append((int(differ.sum()), float(mag[differ].max()) if differ.any() else 0.0,
+                              float(mag.max()), x.numel()))
+            return out.copy_(torch.where(want, x.clamp_min(torch.finfo(x.dtype).tiny), 0.0))
+
+    return ReluPattern()
+
+
+@contextlib.contextmanager
+def beta_terms(model, terms):
+    """Within it, each scalar SDF beta's gradient of ``model`` is also taken
+    apart.  A beta enters the step only through the attention weights sigma =
+    sigmoid(s / b) / b (b the beta clamped to >= 2e-3) of the tokens, so its
+    gradient is the sum over every token of g * dsigma/dbeta, with g the
+    gradient that reaches sigma; those terms are put, in f64 on the host and
+    in forward order, into ``terms[name]``."""
+    import torch
+
+    from hoisdf_torch.models import hoisdf as H
+
+    betas = {id(p): n for n, p in model.named_parameters() if n in SCALAR_GROUPS}
+    plain, calls = H.sdf_attention_weight, {}
+
+    def weight(sdf, beta):
+        sigma = plain(sdf, beta)
+        name = betas.get(id(beta))
+        if name is not None and sigma.requires_grad:
+            s, b = sdf.detach().double(), beta.detach().double()
+            sg = torch.sigmoid(s / b.clamp(min=2e-3))
+            dsig = -(sg * (1 - sg) * s / b + sg) / b ** 2 * (b >= 2e-3)
+            key = (name, len(calls))
+            calls[key] = torch.zeros(sigma.numel(), dtype=torch.float64)  # if no g comes
+            sigma.register_hook(lambda g: calls.__setitem__(
+                key, (g.double() * dsig).reshape(-1).cpu()))
+        return sigma
+
+    H.sdf_attention_weight = weight
+    try:
+        yield
+    finally:
+        H.sdf_attention_weight = plain
+        for (name, _), t in sorted(calls.items(), key=lambda kv: kv[0][1]):
+            terms.setdefault(name, []).append(t)
 
 
 def compare_train_step(cfg, batch_size: int, device, seed: int = 0, loss_tol: float = 1e-4,
-                       grad_tol: float = 1e-3, scalar_grad_tol: float = 5e-3):
+                       grad_tol: float = 1e-3, scalar_grad_tol: float = 5e-3,
+                       terms_tol: float = 1e-2, tie_rel: float = TIE_REL):
     """One presampled train step on the card and on the CPU from the same
     seeded weights and inputs, f32, TF32 off, dropout off, no jitter.  Each
     loss must agree within ``loss_tol`` relative (absolute below 1e-3), and
     the gradient norm of each parameter group (the model's top-level
-    modules) within ``grad_tol`` relative; the two scalar SDF betas within
-    ``scalar_grad_tol``.  Sums are taken in another order.  A beta's
-    gradient is one sum over every SDF point of terms that cancel, so it
-    keeps fewer bits than a tensor's norm: on the H100 the betas read
-    1.77e-3 and 1.10e-3 in every run, the tensor groups at most 4.14e-4."""
+    modules) within ``grad_tol`` relative.
+
+    A ReLU whose input lies within rounding of zero passes on one device and
+    not on the other, and each such switch moves the gradient by a step that
+    no tolerance on rounding covers (at full width over a thousand switch in
+    a step).  So the CPU's step records which elements of each ReLU pass,
+    and the card's step passes exactly those (``relu_pattern``): the two
+    compute one function and differ in rounding alone.  The card's own
+    decisions must differ from the CPU's only at near-ties, inputs within
+    ``tie_rel`` of the call's largest |x|.  The card's step on its own
+    decisions runs too; its losses must agree as above, and its gradients'
+    errors are printed (``natural_grad_norm_rel_err``) beside the gated ones.
+
+    Each scalar SDF beta's gradient is one sum of terms that cancel
+    (``beta_terms``; its ``condition``, sum |t| / |sum t|, multiplies the
+    terms' relative rounding into the sum).  On each device the terms must
+    add up to its gradient (within 1e-5 of sum |t|); as a vector they must
+    agree within ``terms_tol`` in norm (each carries dsigma/dbeta, which
+    multiplies the rounding of its SDF value s by |s| / beta); and the sum
+    within ``scalar_grad_tol``, or within the most that the terms'
+    differences can move it (``terms_bound``, sum |t_card - t_cpu| /
+    |sum t_cpu|) where that is more."""
     import math
+
+    import torch
 
     from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
 
     inputs, targets = split_inputs_targets(synthetic_batch(cfg, batch_size, seed=seed + 5,
                                                            train=True))
-    runs = {}
-    for dev in (device, "cpu"):
+
+    def run(dev, mode, terms=None):
         state, step = _train_parts(cfg, dev, seed, dropout=False)
-        _, losses = step(state, inputs, targets, None, 0.0, use_presampled=True)
+        with mode, (beta_terms(state.model, terms) if terms is not None
+                    else contextlib.nullcontext()):
+            _, losses = step(state, inputs, targets, None, 0.0, use_presampled=True)
         norms = {}
         for name, p in state.model.named_parameters():
             group = name.split(".")[0]
             norms[group] = norms.get(group, 0.0) + p.grad.double().pow(2).sum().item()
-        runs[dev] = ({k: float(v) for k, v in losses.items()},
-                     {k: math.sqrt(v) for k, v in norms.items()})
-    (loss_d, norm_d), (loss_c, norm_c) = runs[device], runs["cpu"]
-    loss_err = {k: abs(loss_d[k] - v) / max(abs(v), 1e-3) for k, v in loss_c.items()}
-    grad_err = {k: abs(norm_d[k] - v) / max(v, 1e-12) for k, v in norm_c.items()}
-    finite = all(math.isfinite(v) for v in (*loss_d.values(), *norm_d.values()))
-    res = {"phase": "train_check", "batch": batch_size, "dtype": "float32",
-           "tf32": tf32_on(),
-           "dropout": False, "dist_range": 0.0, "losses_card": loss_d, "loss_rel_err": loss_err,
-           "loss_tol": loss_tol, "grad_norm_card": norm_d, "grad_norm_rel_err": grad_err,
-           "grad_tol": grad_tol, "scalar_grad_tol": scalar_grad_tol, "finite": finite}
-    res["ok"] = (finite and not res["tf32"] and set(loss_d) == set(loss_c)
-                 and max(loss_err.values()) <= loss_tol
-                 and all(e <= (scalar_grad_tol if k in SCALAR_GROUPS else grad_tol)
-                         for k, e in grad_err.items()))
+        return {k: float(v) for k, v in losses.items()}, {k: math.sqrt(v) for k, v in norms.items()}
+
+    record, terms_c, terms_d = relu_pattern(), {}, {}
+    loss_c, norm_c = run("cpu", record, terms_c)
+    impose = relu_pattern(record.masks)
+    loss_d, norm_d = run(device, impose, terms_d)
+    loss_n, norm_n = run(device, contextlib.nullcontext())
+
+    def rel(got, want, floor):
+        return {k: abs(got[k] - v) / max(abs(v), floor) for k, v in want.items()}
+
+    loss_err, loss_err_n = rel(loss_d, loss_c, 1e-3), rel(loss_n, loss_c, 1e-3)
+    grad_err, grad_err_n = rel(norm_d, norm_c, 1e-12), rel(norm_n, norm_c, 1e-12)
+    beta = {}
+    for name in SCALAR_GROUPS:
+        t_c, t_d = torch.cat(terms_c[name]), torch.cat(terms_d[name])
+        total = abs(float(t_c.sum()))
+        beta[name] = {"terms": t_c.numel(), "condition": float(t_c.abs().sum()) / total,
+                      "terms_rel_err": float((t_d - t_c).norm() / t_c.norm()),
+                      "terms_bound": float((t_d - t_c).abs().sum()) / total,
+                      "terms_sum_vs_grad": max(
+                          abs(abs(float(t.sum())) - norm[name]) / float(t_c.abs().sum())
+                          for t, norm in ((t_c, norm_c), (t_d, norm_d)))}
+    flips = [t for t in impose.ties if t[0]]
+    ties_ok = (len(impose.ties) == len(record.masks)
+               and all(near <= tie_rel * top for _, near, top, _ in flips))
+    finite = all(math.isfinite(v) for v in (*loss_d.values(), *norm_d.values(),
+                                            *loss_n.values(), *norm_n.values()))
+    res = {"phase": "train_check", "setting": cfg.setting, "batch": batch_size,
+           "dtype": "float32", "tf32": tf32_on(), "dropout": False, "dist_range": 0.0,
+           "relu_calls": len(record.masks), "relu_elements": sum(t[3] for t in impose.ties),
+           "relu_switched": sum(t[0] for t in flips),
+           "relu_switched_max_rel": max((near / top for _, near, top, _ in flips), default=0.0),
+           "tie_rel": tie_rel, "losses_card": loss_d, "loss_rel_err": loss_err,
+           "natural_loss_rel_err": loss_err_n, "loss_tol": loss_tol, "grad_norm_card": norm_d,
+           "grad_norm_rel_err": grad_err, "natural_grad_norm_rel_err": grad_err_n,
+           "grad_tol": grad_tol, "beta_terms": beta, "terms_tol": terms_tol,
+           "scalar_grad_tol": scalar_grad_tol, "finite": finite}
+    grads_ok = all(e <= grad_tol for k, e in grad_err.items() if k not in SCALAR_GROUPS)
+    betas_ok = all(b["terms_rel_err"] <= terms_tol and b["terms_sum_vs_grad"] <= 1e-5
+                   and grad_err[k] <= max(scalar_grad_tol, b["terms_bound"])
+                   for k, b in beta.items())
+    res["ok"] = (finite and ties_ok and grads_ok and betas_ok and not res["tf32"]
+                 and set(loss_d) == set(loss_n) == set(loss_c)
+                 and set(norm_d) == set(norm_n) == set(norm_c)
+                 and max(*loss_err.values(), *loss_err_n.values()) <= loss_tol)
     emit(res)
     if not res["ok"]:
-        raise AssertionError("card and CPU disagree on the train step")
+        raise AssertionError(f"card and CPU disagree on the {cfg.setting} train step")
+    return res
+
+
+# ---- phase 7: datasets from disk -----------------------------------------------
+
+def _cfg_args(overrides) -> list:
+    return [a for k, v in overrides.items() for a in ("--cfg", f"{k}={json.dumps(v)}")]
+
+
+def _results_txt(path) -> dict:
+    with open(path) as f:
+        return {k.strip(): float(v) for k, _, v in (ln.partition(":") for ln in f if " :  " in ln)}
+
+
+def time_loader(dataset, batch_size: int, workers: int, mode: str, epochs: int = 2) -> dict:
+    """The loader over ``epochs`` shuffled epochs of ``dataset``, with no
+    consumer work: its start-up ms (the process workers' spawn), the first
+    batch's ms and the mean ms per batch (first included), host clock."""
+    from hoisdf_torch.data.loader import DataLoader
+
+    t0 = time.perf_counter()
+    with DataLoader(dataset, batch_size, shuffle=True, num_workers=workers, drop_last=True,
+                    worker_mode=mode) as loader:
+        start_ms = (time.perf_counter() - t0) * 1e3
+        per_batch, first_ms = [], None
+        for epoch in range(epochs):
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            for batch in loader:
+                per_batch.append((time.perf_counter() - t0) * 1e3)
+                first_ms = per_batch[-1] if first_ms is None else first_ms
+                t0 = time.perf_counter()
+    return {"startup_ms": start_ms, "first_batch_ms": first_ms,
+            "ms_per_batch": sum(per_batch) / len(per_batch), "batches": len(per_batch),
+            "batch_img_shape": list(batch["img"].shape)}
+
+
+def data_phase(device, step_ms: float, batch_size: int = 22, n_batches: int = 3) -> dict:
+    """DexYCB and HO3D read from disk: a DexYCB tree in the small split's
+    layout and an HO3D tree, at the datasets' 640 x 480, are written to a
+    temporary directory (``tests/torch_data_fixtures.py``).  ``train_loop.
+    main`` trains the dexycb preset at full width on the card for
+    ``n_batches`` iterations (one epoch), with the test split's eval at its
+    snapshot; ``evaluate.main`` evaluates that snapshot on the DexYCB test
+    split and random weights on the HO3D evaluation split (the codalab JSON
+    written).  Each split's tail is a short batch.  The loader is timed in
+    thread and in process mode at ``num_data_workers``, beside the train
+    step's ``step_ms``: the card waits on it when it takes longer a batch.
+    Kernel counts are zeroed before each main and read after."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_data_fixtures import write_dexycb, write_ho3d, write_simple_models
+
+    from hoisdf_torch import evaluate, train_loop
+    from hoisdf_torch.config import get_config
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    res = {"phase": "data", "batch": batch_size, "cpu_count": os.cpu_count()}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        simple = write_simple_models(os.path.join(tmp, "simple"), verts=TEMPLATE_VERTS)
+        dex = dict(write_dexycb(os.path.join(tmp, "dexycb"), n_train=n_batches * batch_size,
+                                n_test=batch_size + 1, cut=True, n_hand=1000, n_obj=400),
+                   simple_object_models_dir=simple)
+        ho3d = dict(write_ho3d(os.path.join(tmp, "ho3d"), n_eval=batch_size + 1,
+                               n_hand=1000, n_obj=400), simple_object_models_dir=simple)
+        res["write_s"] = time.perf_counter() - t0
+        cfg = get_config("dexycb", **dex)
+        dataset = evaluate.open_dataset(cfg, "train", make_synthetic_mano(0))
+        res["samples"] = {"dexycb_train": len(dataset), "dexycb_test": batch_size + 1,
+                          "ho3d_evaluation": batch_size + 1}
+        res["num_data_workers"] = cfg.num_data_workers
+        res["loader"] = {mode: time_loader(dataset, batch_size, cfg.num_data_workers, mode)
+                         for mode in ("thread", "process")}
+        res["train_step_ms"] = step_ms
+        res["card_waits_on_loader"] = {mode: r["ms_per_batch"] > step_ms
+                                       for mode, r in res["loader"].items()}
+
+        run = os.path.join(tmp, "run")
+        torch.cuda.synchronize(device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        train_loop.main(["--setting", "dexycb", "--end_epoch", "1", "--run_dir_name", "data",
+                         *_cfg_args(dict(dex, output_dir=run))])
+        torch.cuda.synchronize(device)
+        res["train_loop_s"] = time.perf_counter() - t0
+        res["train_loop_launches"] = dict(launch_counts)
+        out = os.path.join(run, "data")
+        with open(os.path.join(out, "tensorboard", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(os.path.join(out, "log", "train_logs.txt")) as f:
+            iters = sum(" itr " in line for line in f)
+        res["train_loop"] = {"iterations": iters, "first_loss": rows[0]["train_total"],
+                             "eval": {k: v for k, v in rows[-1].items() if k != "step"},
+                             "snapshot": os.listdir(os.path.join(out, "model_dump")),
+                             "debug_images": os.listdir(os.path.join(out, "debug_images"))}
+
+        evals = {}
+        for setting, paths, extra in (
+                ("dexycb", dex, ["--ckpt", os.path.join(out, "model_dump")]),
+                ("ho3d", ho3d, [])):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            path = evaluate.main(["--setting", setting, "--batch-size", str(batch_size),
+                                  "--out", os.path.join(tmp, f"eval_{setting}"), *extra,
+                                  *_cfg_args(paths)])
+            torch.cuda.synchronize(device)
+            evals[setting] = {"s": time.perf_counter() - t0, "results": _results_txt(path),
+                              "launches": dict(launch_counts)}
+        with open(os.path.join(tmp, "eval_ho3d", "pred_mano.json")) as f:
+            xyz, verts = json.load(f)
+        evals["ho3d"]["codalab_entries"] = [len(xyz), len(verts)]
+        res["evaluate"] = evals
+
+    tl = res["train_loop"]
+    finite = bool(np.isfinite([tl["first_loss"], *tl["eval"].values(),
+                               *(v for e in evals.values() for v in e["results"].values())]).all())
+    res["finite"] = finite
+    res["ok"] = (finite and tl["iterations"] == n_batches and "snapshot_0.pth.tar" in tl["snapshot"]
+                 and len(tl["debug_images"]) == 1 and "ADDS_error" in tl["eval"]
+                 and evals["ho3d"]["codalab_entries"] == [batch_size + 1] * 2
+                 and all(res["train_loop_launches"][k] > 0
+                         for k in ("gather_lerp", "gather_lerp_bwd", "sdf_mlp"))
+                 and all(e["launches"]["sdf_mlp"] > 0 for e in evals.values()))
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("data phase failed: a result is not finite, an output is missing "
+                             "or a kernel never ran")
     return res
 
 
@@ -1167,6 +1476,19 @@ def main() -> int:
 
     train_res, bwd_step = train(train_cfg, train_cfg.train_batch_size, device)
     compare_train_step(train_cfg, 2, device)
+    # the other trained presets: ho3d (DecoderBig, the backward at 3,968
+    # channels) and ho3d_render (the IK losses)
+    bwd_ho3d = check_gather_lerp_bwd(device, batch=train_cfg.train_batch_size,
+                                     points=train_cfg.num_samp_hand + train_cfg.num_samp_obj,
+                                     pyramid=PYRAMID_HO3D, pyramid_name="ho3d")
+    trains = {"dexycb": train_res}
+    for setting in ("ho3d", "ho3d_render"):
+        cfg = get_config(setting)
+        trains[setting], bwd = train(cfg, cfg.train_batch_size, device, profile=False)
+        if setting == "ho3d":
+            bwd_step_ho3d = bwd
+        compare_train_step(cfg, 2, device)
+    data_phase(device, train_res["presampled"]["median_ms"])
 
     evals, checks = {}, []
     for setting in EVAL_PRESETS:
@@ -1182,7 +1504,6 @@ def main() -> int:
     kernels = [
         {"name": "sdf_mlp", "route": "cuda", "source": "hoisdf_torch/csrc/sdf_mlp.cu",
          "replaces": SDF_TPU, "launches": launches["sdf_mlp"],
-         "launches_train": train_launches["sdf_mlp"],
          "launches_eval": {s: r["launches"]["sdf_mlp"] for s, r in evals.items()},
          "max_abs_err": sdf_timed["max_abs_err"], "ms": sdf_timed["ms"],
          "plain_ms": sdf_timed["plain_ms"], "bound_ms": sdf_timed["bound_ms"],
@@ -1196,7 +1517,7 @@ def main() -> int:
                                       "f32_step_with_packing_ms")}},
         {"name": "gather_lerp", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_TPU,
-         "launches": launches["gather_lerp"], "launches_train": train_launches["gather_lerp"],
+         "launches": launches["gather_lerp"],
          "max_abs_err": gather_timed["max_abs_err"],
          "ms": gather_timed["ms"], "plain_ms": gather_timed["plain_ms"],
          "bound_ms": gather_timed["bound_ms"], "bound_by": gather_timed["bound_by"],
@@ -1211,8 +1532,15 @@ def main() -> int:
          "ms": bwd_step["ms"], "plain_ms": bwd_step["plain_ms"],
          "bound_ms": bwd_step["bound_ms"], "bound_by": bwd_step["bound_by"],
          "library_ms": bwd_step["library_ms"], "ms_step": bwd_step["ms_step"],
-         "ms_clustered": bwd_timed["ms_clustered"], "ms_uniform": bwd_timed["ms_uniform"]},
+         "ms_clustered": bwd_timed["ms_clustered"], "ms_uniform": bwd_timed["ms_uniform"],
+         **{f"ho3d_{k}": bwd_step_ho3d[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_step", "channels",
+             "points", "launches_per_step")},
+         "ho3d_max_abs_err": max(bwd_ho3d["max_abs_err"], bwd_step_ho3d["max_abs_err"]),
+         "ho3d_ms_clustered": bwd_ho3d["ms_clustered"], "ho3d_ms_uniform": bwd_ho3d["ms_uniform"]},
     ]
+    for entry in kernels:  # launches in each preset's train phase
+        entry["launches_train"] = {s: r["launches"][entry["name"]] for s, r in trains.items()}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi, flush=True)
     emit({"kernels": kernels})

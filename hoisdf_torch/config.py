@@ -1,10 +1,10 @@
 """Configuration of the PyTorch port: the four presets of the JAX package.
 
 A copy of ``hoisdf_tpu.config`` trimmed to the fields the eval forward, the
-evaluator and the train step read: the port imports nothing of the JAX
-package.  Field names and defaults are the JAX package's, so the same
-overrides configure both; a field the port does not have (an option of a path
-not ported yet) is refused by name.
+evaluator, the train step and the data pipeline read: the port imports
+nothing of the JAX package.  Field names and defaults are the JAX package's,
+so the same overrides configure both; a field the port does not have (an
+option of a path not ported yet) is refused by name.
 """
 
 from __future__ import annotations
@@ -13,8 +13,7 @@ import dataclasses
 import warnings
 from typing import Optional, Tuple
 
-# Every preset of the JAX package.  All four evaluate; only dexycb trains
-# (train.py refuses the others by name).
+# Every preset of the JAX package; all four train and evaluate.
 SETTINGS = ("ho3d", "ho3d_render", "dexycb", "dexycb_full")
 
 
@@ -22,17 +21,26 @@ SETTINGS = ("ho3d", "ho3d_render", "dexycb", "dexycb_full")
 class Config:
     setting: str = "dexycb"
     dataset: str = "dexycb"
+    # ---- paths (None => no dataset; main/config.py:46-58) --------------------
+    object_models_dir: Optional[str] = None  # the YCB models' points.xyz clouds
     simple_object_models_dir: Optional[str] = None  # the simplified YCB meshes
+    annotation_dir: Optional[str] = None
+    data_dir: Optional[str] = None
+    fast_data_dir: Optional[str] = None
+    image_fast_path: Optional[str] = None
     output_dir: str = "outputs"
     mano_model_path: Optional[str] = None  # npz of hoisdf_tpu.tools.convert_mano_pkl
     mano_left_path: Optional[str] = None  # the left hand's npz (DexYCB's flipped samples)
 
-    # ---- batch size --------------------------------------------------------
+    # ---- batch sizes (main/config.py:60-62) ---------------------------------
     train_batch_size: int = 22
+    test_batch_size: int = 22
+    eval_batch_size: int = 22
 
     # ---- point sampling --------------------------------------------------
     num_samp_hand: int = 600
     num_samp_obj: int = 200
+    points_filter_dist: float = 0.05  # |sdf| below which a point is "near" (presampled)
     # presample jitter: batch-progress thresholds and the move distance of
     # each band (main/config.py:64-69)
     random_ratio: Tuple[float, ...] = (0.3, 0.7)
@@ -100,6 +108,14 @@ class Config:
 
     eval_mesh: bool = False  # dexycb_full: the mesh EPE/AUC and F-scores
 
+    # ---- data loading ------------------------------------------------------
+    num_data_workers: int = 15
+    data_worker_mode: str = "thread"  # or "process" (data/loader.py)
+    # The JAX package's native C++ image pipeline: "auto" takes the PIL path
+    # here (the port has no native library yet), "off" is the PIL path, and
+    # "on", which requires the library, is refused.
+    native_pipeline: str = "auto"
+
     compute_dtype: str = "float32"  # "bfloat16" for serving
     transfer_dtype: str = "float32"  # train/eval wire: "uint8" ships image bytes
     seed: int = 0
@@ -121,6 +137,15 @@ class Config:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.transfer_dtype not in ("float32", "uint8"):
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}")
+        if self.data_worker_mode not in ("thread", "process"):
+            raise ValueError(f"data_worker_mode {self.data_worker_mode!r}")
+        if self.native_pipeline == "on":
+            raise NotImplementedError(
+                "native_pipeline='on' requires the native C++ image pipeline, which the "
+                "port does not have yet (ROADMAP.md, Queue 1 item 2); 'auto' and 'off' "
+                "take the PIL path")
+        if self.native_pipeline not in ("auto", "off"):
+            raise ValueError(f"native_pipeline {self.native_pipeline!r}")
         # The stock object cascade is quality-gated at K <= 200 only; past the
         # gate fall back to the shared cascade, as the JAX package does.
         stock = type(self).__dataclass_fields__["hier_levels_obj"].default

@@ -14,12 +14,17 @@ accumulation is host numpy.  ``main`` evaluates on one card (or the CPU with
 before batch i's metrics, which run on a side stream behind an event, so
 their host transfer does not wait for batch i+1.
 
+A dataset's eval split (DexYCB's test split, HO3D's evaluation split, which
+also writes the codalab ``pred_mano.json``) is read whole, in order, and its
+short tail batch is padded to the batch size and trimmed before the metrics.
+The model then has the preset's full size, unless ``--cfg`` overrides say
+otherwise; ``--synthetic`` takes the tiny model on synthetic batches.
+
 Usage:
     python -m hoisdf_torch.evaluate --setting dexycb --synthetic [--cpu]
-    python -m hoisdf_torch.evaluate --setting ho3d --synthetic --torch-ckpt snapshot_69.pth.tar
-
-Only the synthetic data path is ported; the real eval splits come with the
-real-data pipeline.
+    python -m hoisdf_torch.evaluate --setting ho3d --torch-ckpt snapshot_69.pth.tar \\
+        --cfg data_dir=... --cfg fast_data_dir=... --cfg object_models_dir=... \\
+        --cfg simple_object_models_dir=... --batch-size 22 --out results/
 """
 
 from __future__ import annotations
@@ -27,14 +32,16 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
-from typing import Dict, Iterable, List, Mapping, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hoisdf_torch.config import Config, SYNTHETIC_TINY_OVERRIDES, get_config, parse_cfg_overrides
-from hoisdf_torch.data.ho3d import HO3D_OBJECTS
-from hoisdf_torch.data.loader import trim_batch
+from hoisdf_torch.data.dexycb import DexYCBDataset
+from hoisdf_torch.data.ho3d import HO3D_OBJECTS, HO3DDataset, dump_codalab_json
+from hoisdf_torch.data.loader import DataLoader, pad_batch, trim_batch
+from hoisdf_torch.data.meshes import load_obj_vertices
 from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
 from hoisdf_torch.mano.layer import ManoBuffers
 from hoisdf_torch.mano.model import load_mano_npz, make_synthetic_mano
@@ -53,16 +60,6 @@ JOINTS_SIMPLE_TO_MANO = np.argsort(JOINTS_MANO_TO_SIMPLE)
 
 COORD_CHANGE_MAT = np.array([[1.0, 0.0, 0.0], [0, -1.0, 0.0], [0.0, 0.0, -1.0]],
                             dtype=np.float32)
-
-
-def load_obj_vertices(path: str) -> np.ndarray:
-    """The vertices of an OBJ file (the simplified YCB meshes)."""
-    verts = []
-    with open(path) as f:
-        for line in f:
-            if line.startswith("v "):
-                verts.append([float(x) for x in line.split()[1:4]])
-    return np.asarray(verts, np.float32)
 
 
 def prepare_model_templates(obj_root: str) -> Tuple[List[np.ndarray], Dict[int, str]]:
@@ -216,26 +213,33 @@ class Evaluator:
 
 
 def evaluate_batches(cfg: Config, eval_step, evaluator: Evaluator,
-                     batches: Iterable[Tuple[Dict, Dict, np.ndarray, int]], batch_size: int
-                     ) -> None:
+                     batches: Iterable[Tuple[Dict, Dict, Optional[np.ndarray], int]],
+                     batch_size: int, on_first_batch: Optional[Callable] = None) -> None:
     """Feed every batch ``(inputs, targets, templates, valid)`` through
     ``eval_step`` and ``evaluator``, with a one-batch lookahead: batch i+1's
     step is enqueued before batch i's metrics run.  On the card the metrics
     run on a side stream behind an event recorded after their step, so their
     host transfer waits for that step only.  Rows past ``valid`` (tail-batch
-    padding) are dropped before the metrics."""
+    padding) are dropped before the metrics; a batch without templates skips
+    them.  ``on_first_batch(preds, targets)`` sees the first batch, trimmed."""
     cuda = evaluator.device.type == "cuda"
     side = torch.cuda.Stream(evaluator.device) if cuda else None
+    hook = on_first_batch
 
     def feed(preds, targets, inputs, templates, valid, ready):
+        nonlocal hook
         if valid < batch_size:
             preds, targets, inputs = (trim_batch(preds, valid), trim_batch(targets, valid),
                                       trim_batch(inputs, valid))
-            templates = templates[:valid]
+            templates = None if templates is None else templates[:valid]
         with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
             if cuda:
                 side.wait_event(ready)
-            evaluator.feed(preds, targets, inputs, templates)
+            if hook is not None:
+                hook(preds, targets)
+                hook = None
+            if templates is not None:
+                evaluator.feed(preds, targets, inputs, templates)
 
     pending = None
     for inputs, targets, templates, valid in batches:
@@ -263,6 +267,45 @@ def synthetic_batches(cfg: Config, n: int, batch_size: int):
         yield inputs, targets, templates, batch_size
 
 
+def open_dataset(cfg: Config, split: str, mano_model, mano_left=None, seed: int = 0):
+    """The preset's dataset of ``split`` ("train", or "test" for DexYCB's
+    and "evaluation" for HO3D's eval split) from the paths in ``cfg``."""
+    if cfg.dataset == "dexycb":
+        return DexYCBDataset(cfg, split, mano_model, mano_left=mano_left, seed=seed)
+    return HO3DDataset(cfg, "evaluation" if split == "test" else split, mano_model, seed=seed)
+
+
+def dataset_batches(cfg: Config, loader: DataLoader, batch_size: int,
+                    obj_root: Optional[str]):
+    """``evaluate_batches``' batches from an eval split: the short tail
+    padded to ``batch_size`` (the pad rows are trimmed before the metrics),
+    and each sample's template, the simplified mesh of its object (main/
+    test.py:84-118), or None without ``obj_root``.  DexYCB's ``obj_cls`` is
+    the 1-based YCB id, the position in the sorted listing of ``obj_root``;
+    HO3D's indexes ``HO3D_OBJECTS``, resolved by name in that listing
+    (common/metrics.py:131-146)."""
+    template_for = None
+    if obj_root:
+        templates_by_cls, obj_names = prepare_model_templates(obj_root)
+        if cfg.dataset == "ho3d":
+            name_pos = {n: i for i, n in enumerate(obj_names.values())}
+
+            def template_for(c):
+                return templates_by_cls[name_pos[HO3D_OBJECTS[int(c)]]]
+        else:
+            def template_for(c):
+                return templates_by_cls[int(c) - 1]
+
+    for batch in loader:
+        inputs, targets = split_inputs_targets(batch)
+        valid = int(inputs["obj_cls"].shape[0])
+        if valid < batch_size:
+            inputs, targets = pad_batch(inputs, batch_size), pad_batch(targets, batch_size)
+        templates = (None if template_for is None
+                     else np.stack([template_for(c) for c in inputs["obj_cls"]]))
+        yield inputs, targets, templates, valid
+
+
 def main(argv=None) -> str:
     p = argparse.ArgumentParser()
     p.add_argument("--setting", default="dexycb")
@@ -271,20 +314,17 @@ def main(argv=None) -> str:
                    help="an original snapshot_*.pth.tar to load and evaluate directly")
     p.add_argument("--mano", default=None, help="MANO .npz path override")
     p.add_argument("--cfg", action="append", default=[], metavar="KEY=VALUE",
-                   help="config field override (repeatable, JSON-parsed values)")
+                   help="config field override (repeatable, JSON-parsed values); the "
+                        "dataset's paths and simple_object_models_dir for a real split")
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic batches at the tiny model size (the only data path "
-                        "ported so far)")
-    p.add_argument("--batches", type=int, default=2)
+                   help="synthetic batches at the tiny model size instead of a dataset")
+    p.add_argument("--batches", type=int, default=2, help="synthetic batches")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--out", default="outputs/result")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     args = p.parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("evaluate: the real eval splits need the real-data pipeline, which "
-                         "is not ported yet (ROADMAP.md, Queue 1 item 15); pass --synthetic")
 
-    overrides = dict(SYNTHETIC_TINY_OVERRIDES)
+    overrides = dict(SYNTHETIC_TINY_OVERRIDES) if args.synthetic else {}
     overrides.update(parse_cfg_overrides(args.cfg))
     if args.mano:
         overrides["mano_model_path"] = args.mano
@@ -294,6 +334,16 @@ def main(argv=None) -> str:
     mano_model = (load_mano_npz(cfg.mano_model_path) if cfg.mano_model_path
                   else make_synthetic_mano(0))
     mano = ManoBuffers.from_model(mano_model)
+    loader = None
+    if not args.synthetic:
+        if not cfg.simple_object_models_dir:
+            raise SystemExit("evaluate: a dataset's eval needs --cfg "
+                             "simple_object_models_dir=<the simplified YCB meshes>")
+        mano_left = load_mano_npz(cfg.mano_left_path) if cfg.mano_left_path else None
+        # the whole split, in order, the tail kept (common/base.py:163-169)
+        loader = DataLoader(open_dataset(cfg, "test", mano_model, mano_left), args.batch_size,
+                            num_workers=cfg.num_data_workers, drop_last=False,
+                            worker_mode=cfg.data_worker_mode)
     model = build_model(cfg)
     if args.torch_ckpt:
         model.load_state_dict(ckpt_util.load_original_state(args.torch_ckpt, model),
@@ -305,11 +355,20 @@ def main(argv=None) -> str:
 
     eval_step = make_eval_step(cfg, model, mano, device=device)
     evaluator = Evaluator(cfg, mano, device=device)
-    evaluate_batches(cfg, eval_step, evaluator,
-                     synthetic_batches(cfg, args.batches, args.batch_size), args.batch_size)
+    if loader is None:
+        batches = synthetic_batches(cfg, args.batches, args.batch_size)
+    else:
+        batches = dataset_batches(cfg, loader, args.batch_size, cfg.simple_object_models_dir)
+    try:
+        evaluate_batches(cfg, eval_step, evaluator, batches, args.batch_size)
+    finally:
+        if loader is not None:
+            loader.close()
 
     os.makedirs(args.out, exist_ok=True)
     path = evaluator.write_results(args.out)
+    if cfg.dataset == "ho3d" and loader is not None:
+        print("wrote", dump_codalab_json(args.out, evaluator.joint_list, evaluator.mesh_list))
     print("wrote", path)
     with open(path) as f:
         print(f.read())

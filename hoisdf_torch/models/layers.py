@@ -26,10 +26,27 @@ class Conv2d(nn.Conv2d):
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
+    """On the card a forward without autograd (eval, serving) runs one of
+    cuDNN's deterministic algorithms: with its default choice two equal
+    forwards differed in the last bits, this being the first operation to
+    differ (``scripts/bisect_card_repeat.py``).  A train step keeps cuDNN's
+    default choice: its backward is not repeatable anyway, and the
+    deterministic forward costs it time."""
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x),
-                                  self.stride, self.padding, self.output_padding,
-                                  self.groups, self.dilation)
+        def run():
+            return F.conv_transpose2d(x, self.weight.to(x.dtype), _cast(self.bias, x),
+                                      self.stride, self.padding, self.output_padding,
+                                      self.groups, self.dilation)
+
+        cudnn = torch.backends.cudnn
+        if not x.is_cuda or torch.is_grad_enabled() or cudnn.deterministic:
+            return run()
+        cudnn.deterministic = True
+        try:
+            return run()
+        finally:
+            cudnn.deterministic = False
 
 
 class Linear(nn.Linear):

@@ -21,6 +21,7 @@ from hoisdf_torch.losses import (
     joint_heatmap_loss,
     joint_vote_loss,
     mano_loss,
+    mano_shape_loss,
     sdf_part_classifier_loss,
     sep_sdf_loss,
     smooth_l1,
@@ -54,16 +55,6 @@ def disable_tf32() -> None:
     step) sets them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def check_trainable(cfg: Config) -> None:
-    """Only the dexycb preset trains in the port so far; the others are
-    refused by name (their IK loss branch and DecoderBig's backward are the
-    next item of ROADMAP.md's Queue 1)."""
-    if cfg.setting != "dexycb":
-        raise NotImplementedError(
-            f"training the {cfg.setting!r} preset is not ported yet (ROADMAP.md, Queue 1: "
-            "train the ho3d presets); only 'dexycb' trains")
 
 
 def _to_device(arrays: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -118,7 +109,6 @@ def create_train_state(cfg: Config, model: HOISDF, steps_per_epoch: int = 1000, 
     """Move ``model`` to ``device`` and give it its optimizer.  With
     ``cfg.reference_init`` the decoder, SDF decoders and transformers are
     first re-drawn by the original's train-mode init, from ``cfg.seed``."""
-    check_trainable(cfg)
     dev = resolve_device(device)
     disable_tf32()
     if cfg.reference_init:
@@ -158,13 +148,17 @@ def compute_losses(cfg: Config, out: Dict[str, torch.Tensor], targets: Dict[str,
                                     out["hand_cls"], joints_gt)
     aux["hand_joints"] = hand_joints[-1]
 
-    pred_mano = mano_head_pred(mano_buffers, out["mano_pose6d"], out["mano_shape"])
-    gt_mano = mano_head_gt(mano_buffers, targets["mano_param"])
-    losses.update(mano_loss(cfg, pred_mano, gt_mano))
-    aux["mano_verts"] = pred_mano["verts3d"][-1]
-    aux["mano_joints"] = pred_mano["joints3d"][-1]
-    aux["mano_joints_gt"] = gt_mano["joints3d"]
-    aux["mano_verts_gt"] = gt_mano["verts3d"]
+    if cfg.use_inverse_kinematics:  # one shape query; the pose comes from IK at eval
+        losses.update(mano_shape_loss(cfg, out["mano_shape"], targets["mano_param"][:, -10:]))
+        aux["mano_shape"] = out["mano_shape"][-1]
+    else:
+        pred_mano = mano_head_pred(mano_buffers, out["mano_pose6d"], out["mano_shape"])
+        gt_mano = mano_head_gt(mano_buffers, targets["mano_param"])
+        losses.update(mano_loss(cfg, pred_mano, gt_mano))
+        aux["mano_verts"] = pred_mano["verts3d"][-1]
+        aux["mano_joints"] = pred_mano["joints3d"][-1]
+        aux["mano_joints_gt"] = gt_mano["joints3d"]
+        aux["mano_verts_gt"] = gt_mano["verts3d"]
 
     losses["obj_rot"] = torch.mean(smooth_l1(
         out["obj_rot"], targets["obj_rot"][None, :, None].expand(out["obj_rot"].shape)))
@@ -185,7 +179,6 @@ def make_train_step(cfg: Config, mano_buffers: ManoBuffers, *, device="cuda"
     at the step's learning rate and returns ``(state, losses)``, the losses
     (with ``total``) as detached scalars on the device.  The state is updated
     in place."""
-    check_trainable(cfg)
     dev = resolve_device(device)
     disable_tf32()
     mano = mano_buffers.to(dev)

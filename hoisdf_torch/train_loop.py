@@ -1,5 +1,5 @@
-"""Training entry point of the port (``hoisdf_tpu/train_loop.py``), on the
-synthetic data path, in one process.
+"""Training entry point of the port (``hoisdf_tpu/train_loop.py``), in one
+process, on a dataset or on synthetic batches.
 
 The epoch loop of the original's ``main/train.py``: the host-side branch gate
 (presampled or field-guided points) and jitter distance per step, the stepped
@@ -8,15 +8,25 @@ loss logging with speed, scalars every 400 iterations, a finite-loss check
 that reads each step's loss a few steps late (so the host does not wait on the
 card every step), a snapshot every 5 epochs (every epoch after the
 point-sampling switch, and the last), and ``--continue`` from the latest
-snapshot.
+snapshot.  At each snapshot an eval pass: with ``--synthetic`` one seeded
+batch through the Evaluator; on DexYCB with ``annotation_dir`` set, the test
+split (metrics when ``simple_object_models_dir`` gives the templates); both
+dump the first batch's heads beside the ground truth as a PNG.
 
-Not ported yet: the real-data loaders, the per-epoch evaluation and its debug
-images, ``--backbone-init`` (the ImageNet graft), ``--zero`` and
-``--multihost``.
+The dataset (DexYCB or HO3D, by the preset) is read from the paths of the
+config through the port's loader (``num_data_workers`` workers of
+``data_worker_mode``), shuffled per epoch, the tail dropped.  The model then
+has the preset's full size unless ``--cfg`` overrides say otherwise;
+``--synthetic`` takes the tiny model.
+
+Not ported yet: ``--backbone-init`` (the ImageNet graft, which needs converted
+torchvision weights), ``--zero`` and ``--multihost``.
 
 Usage:
     python -m hoisdf_torch.train_loop --setting dexycb --run_dir_name demo \\
         --synthetic --end_epoch 2 --iters-per-epoch 4 --batch-size 2 [--cpu]
+    python -m hoisdf_torch.train_loop --setting ho3d --cfg data_dir=... \\
+        --cfg fast_data_dir=... --cfg annotation_dir=...
 """
 
 from __future__ import annotations
@@ -26,18 +36,21 @@ import collections
 import dataclasses
 import json
 import os
-from typing import Dict
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from hoisdf_torch.config import SYNTHETIC_TINY_OVERRIDES, get_config, parse_cfg_overrides
+from hoisdf_torch.config import SYNTHETIC_TINY_OVERRIDES, Config, get_config, parse_cfg_overrides
+from hoisdf_torch.data.loader import DataLoader
 from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
+from hoisdf_torch.evaluate import Evaluator, dataset_batches, evaluate_batches, open_dataset
 from hoisdf_torch.mano.layer import ManoBuffers
 from hoisdf_torch.mano.model import load_mano_npz, make_synthetic_mano
 from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.ops import wire
-from hoisdf_torch.train import create_train_state, make_train_step, presample_gate
+from hoisdf_torch.train import (create_train_state, make_eval_step, make_train_step,
+                                presample_gate)
 from hoisdf_torch.utils import checkpoint as ckpt_util
 from hoisdf_torch.utils.logger import colorlogger
 from hoisdf_torch.utils.timer import Timer
@@ -67,10 +80,54 @@ class ScalarWriter:
             for k, v in scalars.items():
                 self._tb.add_scalar(k, float(v), step)
 
+    def add_image(self, step: int, tag: str, img) -> None:
+        """A [H, W] or [H, W, C] u8 image to TensorBoard (a no-op without it)."""
+        if self._tb is not None:
+            arr = np.asarray(img)
+            self._tb.add_image(tag, arr[..., None] if arr.ndim == 2 else arr, step,
+                               dataformats="HWC")
+
     def close(self) -> None:
         self._f.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def dump_debug_images(out_dir: str, step: int, preds: Mapping, targets: Mapping,
+                      writer: Optional[ScalarWriter] = None) -> str:
+    """The first sample's predicted heatmap and hand / object segmentations
+    beside the ground-truth masks, each scaled to 0-255, as one PNG
+    ``debug_{step:08d}.png`` (the original's TensorBoard image grids,
+    main/train.py:302-440), mirrored to ``writer``.  Returns the path."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    heads = preds["decoder_heads"][0]
+    heads = heads.float().cpu().numpy() if isinstance(heads, torch.Tensor) else np.asarray(heads)
+
+    def norm255(x):
+        lo, hi = x.min(), x.max()
+        return ((x - lo) / (hi - lo + 1e-8) * 255).astype(np.uint8)
+
+    panels = [norm255(heads[..., i]) for i in range(3)]
+    if "hand_seg" in targets:
+        panels += [norm255(np.asarray(targets[k][0])) for k in ("hand_seg", "obj_seg")]
+    grid = np.concatenate(panels, axis=1)
+    path = os.path.join(out_dir, f"debug_{step:08d}.png")
+    Image.fromarray(grid).save(path)
+    if writer is not None:
+        writer.add_image(step, "debug/heads", grid)
+    return path
+
+
+def eval_synthetic(cfg: Config, eval_step, mano: ManoBuffers, device) -> Tuple[Dict, Dict]:
+    """One seeded synthetic batch of 2 through the eval step and the
+    Evaluator, with 100-vertex random templates -> (preds, targets)."""
+    inputs, targets = split_inputs_targets(synthetic_batch(cfg, 2, seed=999))
+    preds = eval_step(inputs)
+    templates = np.random.RandomState(0).randn(2, 100, 3).astype(np.float32) * 0.05
+    Evaluator(cfg, mano, device=device).feed(preds, targets, inputs, templates)
+    return preds, targets
 
 
 def parse_args(argv=None):
@@ -83,8 +140,10 @@ def parse_args(argv=None):
     p.add_argument("--lr_drop", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic batches at the tiny model size (the only data path "
-                        "ported so far)")
+                   help="synthetic batches at the tiny model size instead of a dataset")
+    p.add_argument("--backbone-init", default=None, metavar="SNAPSHOT_DIR",
+                   help="not ported: the ImageNet backbone graft needs converted "
+                        "torchvision weights")
     p.add_argument("--iters-per-epoch", type=int, default=None)
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("--cfg", action="append", default=[], metavar="KEY=VALUE",
@@ -95,9 +154,10 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if not args.synthetic:
-        raise SystemExit("train_loop: the real-data loaders are not ported; pass --synthetic")
-    overrides = dict(SYNTHETIC_TINY_OVERRIDES)
+    if args.backbone_init:
+        raise SystemExit("train_loop: --backbone-init is not ported: the ImageNet backbone "
+                         "graft needs converted torchvision weights (ROADMAP.md)")
+    overrides = dict(SYNTHETIC_TINY_OVERRIDES) if args.synthetic else {}
     for key, value in (("end_epoch", args.end_epoch),
                        ("point_sampling_epoch", args.point_sampling_epoch),
                        ("lr_drop", args.lr_drop), ("train_batch_size", args.batch_size)):
@@ -120,12 +180,35 @@ def main(argv=None) -> None:
 
     mano_model = (load_mano_npz(cfg.mano_model_path) if cfg.mano_model_path
                   else make_synthetic_mano(0))
+    mano_left = load_mano_npz(cfg.mano_left_path) if cfg.mano_left_path else None
     mano = ManoBuffers.from_model(mano_model)
-    iters_per_epoch = args.iters_per_epoch or 8
+    loaders = []  # closed at the end (process workers)
 
-    def batches(epoch):
-        for i in range(iters_per_epoch):
-            yield synthetic_batch(cfg, cfg.train_batch_size, seed=epoch * 10000 + i, train=True)
+    if args.synthetic:
+        iters_per_epoch = args.iters_per_epoch or 8
+
+        def batches(epoch):
+            for i in range(iters_per_epoch):
+                yield synthetic_batch(cfg, cfg.train_batch_size, seed=epoch * 10000 + i,
+                                      train=True)
+    else:
+        loader = DataLoader(open_dataset(cfg, "train", mano_model, mano_left, seed=cfg.seed),
+                            cfg.train_batch_size, shuffle=True,
+                            num_workers=cfg.num_data_workers, drop_last=True, seed=cfg.seed,
+                            worker_mode=cfg.data_worker_mode)
+        loaders.append(loader)
+        iters_per_epoch = args.iters_per_epoch or len(loader)
+
+        def batches(epoch):
+            loader.set_epoch(epoch)
+            yield from loader
+    eval_loader = None
+    if not args.synthetic and cfg.dataset == "dexycb" and cfg.annotation_dir:
+        # the whole test split, in order, the tail kept (common/base.py:205-211)
+        eval_loader = DataLoader(open_dataset(cfg, "test", mano_model, mano_left, seed=cfg.seed),
+                                 cfg.eval_batch_size, num_workers=cfg.num_data_workers,
+                                 drop_last=False, worker_mode=cfg.data_worker_mode)
+        loaders.append(eval_loader)
 
     state = create_train_state(cfg, build_model(cfg, cfg.seed), iters_per_epoch, device=device)
     start_epoch = 0
@@ -135,11 +218,13 @@ def main(argv=None) -> None:
             start_epoch = resumed + 1
             logger.info(f"resumed from epoch {resumed}")
     train_step = make_train_step(cfg, mano, device=device)
+    eval_step = make_eval_step(cfg, state.model, mano, device=device)
     generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     host_rng = np.random.default_rng(cfg.seed + 2)
     tot_timer, step_timer = Timer(), Timer()
     loss_window: "collections.deque" = collections.deque()
     total = float("nan")
+    debug_dir = os.path.join(out_root, "debug_images")
 
     def check_finite(l_epoch, l_itr, l_losses) -> float:
         """Read a lagged step's losses; on a non-finite total, save the state
@@ -158,6 +243,21 @@ def main(argv=None) -> None:
                                "the fault; resume from the last regular snapshot"}, f, indent=2)
         raise FloatingPointError(f"non-finite training loss: {crash}")
 
+    def evaluate_snapshot() -> None:
+        state.model.eval()  # the next train step puts it back in train mode
+        if args.synthetic:
+            preds, targets = eval_synthetic(cfg, eval_step, mano, device)
+            dump_debug_images(debug_dir, state.step, preds, targets, writer)
+        elif eval_loader is not None:
+            ev = Evaluator(cfg, mano, device=device)
+            batches = dataset_batches(cfg, eval_loader, cfg.eval_batch_size,
+                                      cfg.simple_object_models_dir)
+            evaluate_batches(cfg, eval_step, ev, batches, cfg.eval_batch_size,
+                             lambda p, t: dump_debug_images(debug_dir, state.step, p, t, writer))
+            results = {k: v / max(ev.total, 1) for k, v in ev.results.items()}
+            writer.add_scalars(state.step, results)
+            logger.info("eval: " + " ".join(f"{k}={v:.3f}" for k, v in results.items()))
+
     try:
         for epoch in range(start_epoch, cfg.end_epoch):
             for itr, batch_np in enumerate(batches(epoch)):
@@ -165,6 +265,7 @@ def main(argv=None) -> None:
                 use_pre, dist_range = presample_gate(
                     cfg, epoch, itr / max(iters_per_epoch, 1), float(host_rng.random()))
                 inputs, targets = split_inputs_targets(batch_np)
+                inputs.pop("obj_cls", None)
                 if cfg.transfer_dtype == "uint8":
                     inputs, targets = wire.encode_batch(inputs, targets)
                 step_timer.tic()
@@ -188,8 +289,11 @@ def main(argv=None) -> None:
             if epoch % save_gap == 0 or epoch == cfg.end_epoch - 1:
                 ckpt_util.save_snapshot(model_dir, epoch, state)
                 logger.info(f"snapshot saved at epoch {epoch}")
+                evaluate_snapshot()
     finally:
         writer.close()
+        for loader in loaders:
+            loader.close()
     logger.info("training done")
 
 

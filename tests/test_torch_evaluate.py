@@ -217,6 +217,13 @@ def test_main_loads_weights(source, tmp_path):
         assert f.read() == g.read()
 
 
-def test_main_refuses_real_data():
-    with pytest.raises(SystemExit, match="item 15"):
-        PE.main(["--setting", "ho3d", "--cpu"])
+@pytest.mark.parametrize("argv,match", [
+    (["--cfg", "native_pipeline=on"], "native_pipeline='on'"),
+    ([], "simple_object_models_dir"),
+])
+def test_main_refuses_the_native_pipeline_and_a_split_without_templates(argv, match):
+    """A dataset's eval runs (``test_torch_data_mains.py``); what it refuses is
+    the native image pipeline, which the port does not have, and a split
+    without its object templates."""
+    with pytest.raises((SystemExit, NotImplementedError), match=match):
+        PE.main(["--setting", "ho3d", "--cpu", *argv])

@@ -1,6 +1,8 @@
-"""The PyTorch port stands alone: neither ``hoisdf_torch`` nor
-``chip_smoke.py`` imports JAX, flax or the JAX package (checked on the
-source with ``ast``, so a guarded or function-local import counts too)."""
+"""The PyTorch port stands alone: neither ``hoisdf_torch``, ``chip_smoke.py``
+nor the data-fixture writer they share with the tests imports JAX, flax or
+the JAX package (checked on the source with ``ast``, so a guarded or
+function-local import counts too); the fixture writer imports numpy and PIL
+only."""
 
 import ast
 import pathlib
@@ -18,14 +20,20 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "hoisdf_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "hoisdf_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_data_fixtures.py",
+        ROOT / "scripts" / "bisect_card_repeat.py"]
     assert len(files) > 15
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("train.py", "train_loop.py", "losses.py", "ops/heatmap.py",
                    "models/initializers.py", "utils/checkpoint.py", "utils/logger.py",
                    "utils/timer.py", "evaluate.py", "metrics.py", "ops/ik.py",
-                   "data/ho3d.py", "data/loader.py"):
+                   "data/ho3d.py", "data/loader.py", "data/dexycb.py", "data/transforms.py",
+                   "data/image_io.py", "data/meshes.py"):
         assert f"hoisdf_torch/{module}" in names, module
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+    fixtures = ROOT / "tests" / "torch_data_fixtures.py"
+    stdlib = {"__future__", "json", "os", "pickle", "typing"}
+    assert {n.split(".")[0] for n in _imports(fixtures)} - stdlib == {"numpy", "PIL"}

@@ -1,8 +1,7 @@
 """The ho3d preset against the JAX package: ``DecoderBig`` (the JAX module
 and the torch golden), the weight bridge of its two-conv heads, and the whole
-eval step at the tiny config; and the train path's refusal of every preset
-but dexycb.  ``test_torch_presets_ik_mesh.py`` covers ho3d_render and
-dexycb_full.
+eval step at the tiny config; and one train step of every preset.
+``test_torch_presets_ik_mesh.py`` covers ho3d_render and dexycb_full.
 
 Both sides run in f32 on the CPU (JAX at matmul precision "highest").  The
 tiny ho3d model keeps DecoderBig (the JAX package's tiny overrides switch it
@@ -22,15 +21,15 @@ import torch
 from hoisdf_torch.mano.layer import ManoBuffers
 from hoisdf_torch.mano.model import make_synthetic_mano
 from hoisdf_torch.models.decoder import DecoderBig as PortDecoderBig
-from hoisdf_torch.models.hoisdf import HOISDF
+from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.models.resnet import ResNetBackbone as PortResNet
 from hoisdf_torch.train import create_train_state, make_train_step
 from hoisdf_torch.weights import state_dict_numpy_from_jax
 from hoisdf_tpu.models.decoder import DecoderBig as JaxDecoderBig
 from hoisdf_tpu.tools.synth_weights import synth_state_dict
 
-from torch_port_util import (check_bridge, check_eval_step, perturb_batch_stats, preset_configs,
-                             preset_setup)
+from torch_port_util import (check_bridge, check_eval_step, one_torch_thread,  # noqa: F401
+                             perturb_batch_stats, preset_configs, preset_setup)
 
 T = torch.from_numpy
 
@@ -106,11 +105,22 @@ def test_ho3d_eval_step_matches_jax(ho3d):
     check_eval_step(ho3d)
 
 
-@pytest.mark.parametrize("setting", ["ho3d", "ho3d_render", "dexycb_full"])
-def test_training_refuses_presets_but_dexycb(setting):
+@pytest.mark.parametrize("setting", ["dexycb", "dexycb_full", "ho3d", "ho3d_render"])
+def test_every_preset_takes_a_train_step(setting, one_torch_thread):
+    """Each preset builds its train state and takes one presampled and one
+    field-guided CPU step with finite losses; ho3d_render's carry the IK
+    shape losses and no MANO mesh losses."""
+    from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
+
     _, pcfg = preset_configs(setting)
     mano = ManoBuffers.from_model(make_synthetic_mano(0))
-    with pytest.raises(NotImplementedError, match=f"training the '{setting}' preset"):
-        make_train_step(pcfg, mano, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        create_train_state(pcfg, HOISDF(pcfg), device="cpu")
+    state = create_train_state(pcfg, build_model(pcfg, 0), steps_per_epoch=2, device="cpu")
+    step = make_train_step(pcfg, mano, device="cpu")
+    inputs, targets = split_inputs_targets(synthetic_batch(pcfg, 2, seed=1, train=True))
+    gen = torch.Generator().manual_seed(0)
+    for pre in (True, False):
+        state, losses = step(state, inputs, targets, gen, 0.03, use_presampled=pre)
+        assert all(np.isfinite(float(v)) for v in losses.values()), losses
+    assert state.step == 2
+    ik = setting == "ho3d_render"
+    assert ("shape_reg_loss" in losses) == ik and ("mano_mesh_loss" in losses) != ik

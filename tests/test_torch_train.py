@@ -27,12 +27,13 @@ Tolerances, with their reasons:
   exceed 1e-5 in size the updates agree to 1e-6; elsewhere (a gradient
   within noise of zero) they may differ by up to 2 lr.
 - running statistics: 1e-4 relative + 1e-6 absolute.
+
+The comparison (``torch_port_util.check_train_step``) is shared with the ho3d
+presets' train tests.
 """
 
 import os
 
-import flax.linen as fnn
-import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -58,121 +59,18 @@ from hoisdf_tpu.models.mano_head import mano_head_gt as jax_mano_head_gt
 from hoisdf_tpu.ops import wire as jwire
 from hoisdf_tpu.tools.convert_torch_ckpt import convert_state_dict, load_torch_state
 
-from torch_port_util import configs, init_jax, perturb_batch_stats, port_model
-
-STEPS_PER_EPOCH = 10
-BRANCHES = {"presampled": True, "field_guided": False}
-
-
-def _np(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-def _grads_from_first_moment(params, opt_state):
-    """The gradient of every trainable leaf, g = mu / 0.1 after one AdamW
-    step; frozen leaves (optax.MaskedNode) are left out."""
-    mu = opt_state.inner_states["trainable"].inner_state[0].mu
-    out = {}
-    for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]:
-        node = mu
-        for k in path:
-            node = node[k.key]
-        if isinstance(node, optax.MaskedNode):
-            continue
-        sub = out
-        for k in path[:-1]:
-            sub = sub.setdefault(k.key, {})
-        sub[path[-1].key] = np.asarray(node) / np.float32(0.1)
-    return state_dict_numpy_from_jax(out, {})
+from torch_port_util import BRANCHES, check_train_step, configs, port_train_state, train_setup
 
 
 @pytest.fixture(scope="module")
 def setup():
     jcfg, pcfg = configs(reference_init=False)
-    jmodel, params, stats = init_jax(jcfg)
-    stats = perturb_batch_stats(stats)
-    mano = make_synthetic_mano(0)
-    inputs, targets = split_inputs_targets(synthetic_batch(jcfg, 2, seed=3, train=True))
-    tx = jtrain.make_optimizer(jcfg, params, STEPS_PER_EPOCH)
-    jstate = jtrain.TrainState(step=jnp.asarray(0), params=params, batch_stats=stats,
-                               opt_state=tx.init(params), tx=tx)
-    results = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
-        jstep = jtrain.make_train_step(jcfg, jmodel, JaxManoBuffers.from_model(mano))
-        for name, pre in BRANCHES.items():
-            new, losses = jstep(jstate, {k: jnp.asarray(v) for k, v in inputs.items()},
-                                {k: jnp.asarray(v) for k, v in targets.items()},
-                                jax.random.PRNGKey(0), jnp.asarray(0.0), use_presampled=pre)
-            results[name] = {
-                "losses": {k: float(v) for k, v in losses.items()},
-                "state": state_dict_numpy_from_jax(_np(new.params), _np(new.batch_stats)),
-                "grads": _grads_from_first_moment(params, new.opt_state),
-            }
-    return pcfg, params, stats, mano, inputs, targets, results
-
-
-def _port_train_state(pcfg, params, stats):
-    model = port_model(pcfg, params, stats)
-    for m in model.modules():
-        if isinstance(m, Dropout):
-            m.p = 0.0
-    return ptrain.create_train_state(pcfg, model, STEPS_PER_EPOCH, device="cpu")
+    return train_setup(jcfg, pcfg)
 
 
 @pytest.mark.parametrize("branch", list(BRANCHES))
 def test_train_step_matches_jax(setup, branch):
-    pcfg, params, stats, mano, inputs, targets, results = setup
-    want = results[branch]
-    state = _port_train_state(pcfg, params, stats)
-    before = {k: v.clone() for k, v in state.model.state_dict().items()}
-    step = ptrain.make_train_step(pcfg, ManoBuffers.from_model(mano), device="cpu")
-    state, losses = step(state, inputs, targets, None, 0.0, use_presampled=BRANCHES[branch])
-    assert state.step == 1
-
-    # every loss key
-    assert set(losses) == set(want["losses"])
-    for k, v in want["losses"].items():
-        assert np.isfinite(v)
-        np.testing.assert_allclose(float(losses[k]), v, rtol=1e-4, atol=1e-6, err_msg=k)
-
-    # every trainable parameter's gradient
-    named = dict(state.model.named_parameters())
-    frozen = {n for n in named if ptrain.is_frozen(n)}
-    assert set(want["grads"]) == set(named) - frozen
-    err2 = ref2 = 0.0
-    for k, g in want["grads"].items():
-        got = named[k].grad.numpy()
-        err = np.linalg.norm(got - g)
-        assert err <= 3e-2 * np.linalg.norm(g) + 1e-5, (k, err, np.linalg.norm(g))
-        err2 += err ** 2
-        ref2 += np.sum(g.astype(np.float64) ** 2)
-    assert np.sqrt(err2 / ref2) <= 1e-3
-
-    # the parameters after the AdamW update, and the running statistics
-    lr = ptrain.lr_for_step(pcfg, 0, STEPS_PER_EPOCH)
-    after = state.model.state_dict()
-    for k, w in want["state"].items():
-        got = after[k].numpy()
-        if k.endswith(("running_mean", "running_var")):
-            np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-6, err_msg=k)
-            continue
-        if k in frozen:
-            np.testing.assert_array_equal(got, before[k].numpy(), err_msg=k)
-            np.testing.assert_array_equal(w, before[k].numpy(), err_msg=k)
-            continue
-        g, gp = want["grads"][k], named[k].grad.numpy()
-        sure = (np.minimum(np.abs(g), np.abs(gp)) > 1e-5) & (np.sign(g) == np.sign(gp))
-        diff = np.abs(got - w)
-        assert diff[sure].max(initial=0.0) <= 1e-6, k
-        assert diff.max() <= 2 * lr + 1e-6, k
-    # the BN freeze: stem and block BNs frozen, the downsample BNs train
-    assert "backbone_net.resnet.bn1.weight" in frozen
-    assert "backbone_net.resnet.layer1.0.bn2.bias" in frozen
-    ds = "backbone_net.resnet.layer2.0.downsample.1.weight"
-    assert ds not in frozen and not torch.equal(after[ds], before[ds])
-    rm = "backbone_net.resnet.bn1.running_mean"
-    assert not torch.equal(after[rm], before[rm])  # frozen BNs' statistics still move
+    check_train_step(setup, branch)
 
 
 def test_running_variance_takes_flax_rule_biased():
@@ -364,7 +262,7 @@ def test_checkpoint_round_trip_and_converter(setup, tmp_path):
     """A snapshot in the original layout: read back by the JAX package's
     converter into the same flax trees, and resumed into a fresh state."""
     pcfg, params, stats, mano, inputs, targets, _ = setup
-    state = _port_train_state(pcfg, params, stats)
+    state = port_train_state(pcfg, params, stats)
     step = ptrain.make_train_step(pcfg, ManoBuffers.from_model(mano), device="cpu")
     state, _ = step(state, inputs, targets, None, 0.0, use_presampled=True)
     path = ckpt.save_snapshot(str(tmp_path), 3, state)
@@ -381,7 +279,7 @@ def test_checkpoint_round_trip_and_converter(setup, tmp_path):
     for k, v in want.items():
         np.testing.assert_array_equal(v, sd[k].numpy(), err_msg=k)
 
-    fresh = _port_train_state(pcfg, params, stats)
+    fresh = port_train_state(pcfg, params, stats)
     assert ckpt.restore_snapshot(str(tmp_path), fresh) == 3
     assert fresh.step == state.step == 1
     for k, v in fresh.model.state_dict().items():

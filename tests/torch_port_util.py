@@ -7,18 +7,26 @@ Both packages run on the CPU in f32; JAX at matmul precision "highest"
 
 from __future__ import annotations
 
+import sys
+
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
+import pytest
 
 from hoisdf_torch.config import SYNTHETIC_TINY_OVERRIDES as PORT_TINY
 from hoisdf_torch.config import get_config as port_get_config
 from hoisdf_torch.mano.layer import ManoBuffers
+from hoisdf_torch import train as ptrain
 from hoisdf_torch.mano.model import make_synthetic_mano
 from hoisdf_torch.models.hoisdf import HOISDF as PortHOISDF
+from hoisdf_torch.models.layers import Dropout
 from hoisdf_torch.ops import wire
 from hoisdf_torch.train import make_eval_step
-from hoisdf_torch.weights import state_dict_from_jax
+from hoisdf_torch.weights import state_dict_from_jax, state_dict_numpy_from_jax
+from hoisdf_tpu import train as jtrain
 from hoisdf_tpu.config import SYNTHETIC_TINY_OVERRIDES as JAX_TINY
 from hoisdf_tpu.config import get_config as jax_get_config
 from hoisdf_tpu.data.synthetic import split_inputs_targets, synthetic_batch
@@ -183,3 +191,220 @@ def check_eval_step(preset):
     assert ("mano_shape" in got) == pcfg.use_inverse_kinematics
     assert ("mano_verts" in got) != pcfg.use_inverse_kinematics
     assert_eval_matches_jax(got, preset["want"], pcfg)
+
+
+# ---- train-step comparison ---------------------------------------------------
+#
+# One train step of each branch from the same bridged weights and BatchNorm
+# statistics, against ``hoisdf_tpu.train.make_train_step``.  Random streams
+# cannot match (a torch generator does not give JAX's bits), so both sides run
+# without them: ``dist_range=0`` makes the presample jitter exactly zero, and
+# every dropout is an identity (the port's dropout p = 0; flax's
+# ``nn.Dropout`` patched to an identity for the JAX compile).  A ReLU input
+# within rounding of zero falls on either side depending on the summation
+# order (the port's CPU matmuls change theirs with the thread count), and
+# one such switch moves the gradient of a tiny model by ~3e-3 in norm.  So
+# the port's step runs first and records which elements of each ReLU pass
+# (``chip_smoke.relu_pattern``), and JAX's presampled step is compiled with
+# each of its ReLUs passing exactly those: the two compute one function.  The
+# JAX step's own decisions must differ from the port's only at near-ties.
+# The field-guided branch keeps each side's own decisions: its point sampler
+# picks points by their SDF values, and the tie's shift of JAX's values
+# (up to |x|) can move that pick, after which no ReLU pattern matches.  JAX's
+# gradients are read from its optimizer's first moment after one step
+# (mu = 0.1 g); the frozen BN parameters have none there (they are masked
+# out) and are checked to stay unchanged instead.  The tolerances and their
+# reasons are in ``test_torch_train.py``'s docstring.
+
+STEPS_PER_EPOCH = 10
+BRANCHES = {"presampled": True, "field_guided": False}
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's tiny models, for the rest of the
+    test module: the suite's parallel workers would otherwise oversubscribe
+    the cores many times over."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _grads_from_first_moment(params, opt_state):
+    """The gradient of every trainable leaf, g = mu / 0.1 after one AdamW
+    step; frozen leaves (optax.MaskedNode) are left out."""
+    mu = opt_state.inner_states["trainable"].inner_state[0].mu
+    out = {}
+    for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]:
+        node = mu
+        for k in path:
+            node = node[k.key]
+        if isinstance(node, optax.MaskedNode):
+            continue
+        sub = out
+        for k in path[:-1]:
+            sub = sub.setdefault(k.key, {})
+        sub[path[-1].key] = np.asarray(node) / np.float32(0.1)
+    return state_dict_numpy_from_jax(out, {})
+
+
+# the JAX package's modules whose ReLUs act on NHWC image maps (NCHW in the port)
+IMAGE_MAP_SOURCES = ("models/resnet.py", "models/decoder.py")
+
+
+def _imposed_relu(masks, ties):
+    """A stand-in for ``jax.nn.relu`` whose i-th traced call passes exactly
+    ``masks[i]`` (the port's i-th ReLU; its NCHW image maps turned to NHWC),
+    or decides itself where that is None.  At run time it notes in
+    ``ties[i]`` how many of JAX's own decisions differ, the largest |x| among
+    them and the call's largest |x|."""
+    calls, own = [], jax.nn.relu
+
+    def note(i, n, near, top):
+        ties[int(i)] = (int(n), float(near), float(top))
+
+    def relu(x):
+        i = len(calls)
+        calls.append(i)
+        assert i < len(masks), "JAX's step has more ReLUs than the port's"
+        if masks[i] is None:  # outside autograd in the port: JAX's own decisions
+            ties[i] = (0, 0.0, 0.0)
+            return own(x)
+        m = masks[i].numpy()
+        if sys._getframe(1).f_code.co_filename.replace("\\", "/").endswith(IMAGE_MAP_SOURCES):
+            m = m.transpose(0, 2, 3, 1)
+        assert m.shape == x.shape, (i, m.shape, x.shape)
+        differ, mag = (x > 0) != m, jnp.abs(x)
+        jax.debug.callback(note, i, differ.sum(), jnp.max(jnp.where(differ, mag, 0.0)),
+                           jnp.max(mag))
+        return jnp.where(m, x, jnp.zeros_like(x))
+
+    return relu
+
+
+def train_setup(jcfg, pcfg, branches=tuple(BRANCHES)):
+    """One JAX init; then for each of ``branches`` one port step and one JAX
+    step on its ReLU pattern, at batch 2 -> (pcfg, params, stats, mano,
+    inputs, targets, results by branch)."""
+    from chip_smoke import relu_pattern
+
+    jmodel, params, stats = init_jax(jcfg)
+    stats = perturb_batch_stats(stats)
+    mano = make_synthetic_mano(0)
+    inputs, targets = split_inputs_targets(synthetic_batch(jcfg, 2, seed=3, train=True))
+    tx = jtrain.make_optimizer(jcfg, params, STEPS_PER_EPOCH)
+    jstate = jtrain.TrainState(step=jnp.asarray(0), params=params, batch_stats=stats,
+                               opt_state=tx.init(params), tx=tx)
+    results = {}
+    for name in branches:
+        state = port_train_state(pcfg, params, stats)
+        before = {k: v.clone() for k, v in state.model.state_dict().items()}
+        step = ptrain.make_train_step(pcfg, ManoBuffers.from_model(mano), device="cpu")
+        pattern = relu_pattern()
+        with pattern:
+            state, losses = step(state, inputs, targets, None, 0.0,
+                                 use_presampled=BRANCHES[name])
+        ties = {} if BRANCHES[name] else None
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fnn.Dropout, "__call__", lambda self, x, *a, **k: x)
+            if ties is not None:
+                relu = _imposed_relu(pattern.masks, ties)
+                mp.setattr(fnn, "relu", relu)
+                mp.setattr(jax.nn, "relu", relu)
+            jstep = jtrain.make_train_step(jcfg, jmodel, JaxManoBuffers.from_model(mano))
+            new, jlosses = jstep(jstate, {k: jnp.asarray(v) for k, v in inputs.items()},
+                                 {k: jnp.asarray(v) for k, v in targets.items()},
+                                 jax.random.PRNGKey(0), jnp.asarray(0.0),
+                                 use_presampled=BRANCHES[name])
+            jax.effects_barrier()
+        results[name] = {
+            "losses": {k: float(v) for k, v in jlosses.items()},
+            "state": state_dict_numpy_from_jax(_np(new.params), _np(new.batch_stats)),
+            "grads": _grads_from_first_moment(params, new.opt_state),
+            "relu_calls": len(pattern.masks), "relu_ties": ties,
+            "port": (state, losses, before),
+        }
+    return pcfg, params, stats, mano, inputs, targets, results
+
+
+def port_train_state(pcfg, params, stats):
+    """The port's train state on the CPU from the bridged weights, dropout off."""
+    model = port_model(pcfg, params, stats)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return ptrain.create_train_state(pcfg, model, STEPS_PER_EPOCH, device="cpu")
+
+
+def check_train_step(setup, branch):
+    """The port's step of ``branch`` against the JAX results of
+    :func:`train_setup`: the ReLU patterns, every loss, every trainable
+    gradient, the parameters after AdamW, the running statistics and the BN
+    freeze."""
+    import torch
+
+    from chip_smoke import TIE_REL
+
+    pcfg, params, stats, mano, inputs, targets, results = setup
+    want = results[branch]
+    state, losses, before = want["port"]
+    assert state.step == 1
+
+    # presampled: every ReLU of the port's step met once in JAX's, whose own
+    # decisions differ only at near-ties
+    if want["relu_ties"] is not None:
+        assert sorted(want["relu_ties"]) == list(range(want["relu_calls"]))
+        for i, (n, near, top) in want["relu_ties"].items():
+            assert n == 0 or near <= TIE_REL * top, (i, n, near, top)
+
+    # every loss key
+    assert set(losses) == set(want["losses"])
+    for k, v in want["losses"].items():
+        assert np.isfinite(v)
+        np.testing.assert_allclose(float(losses[k]), v, rtol=1e-4, atol=1e-6, err_msg=k)
+
+    # every trainable parameter's gradient
+    named = dict(state.model.named_parameters())
+    frozen = {n for n in named if ptrain.is_frozen(n)}
+    assert set(want["grads"]) == set(named) - frozen
+    err2 = ref2 = 0.0
+    for k, g in want["grads"].items():
+        got = named[k].grad.numpy()
+        err = np.linalg.norm(got - g)
+        assert err <= 3e-2 * np.linalg.norm(g) + 1e-5, (k, err, np.linalg.norm(g))
+        err2 += err ** 2
+        ref2 += np.sum(g.astype(np.float64) ** 2)
+    assert np.sqrt(err2 / ref2) <= 1e-3
+
+    # the parameters after the AdamW update, and the running statistics
+    lr = ptrain.lr_for_step(pcfg, 0, STEPS_PER_EPOCH)
+    after = state.model.state_dict()
+    for k, w in want["state"].items():
+        got = after[k].numpy()
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-6, err_msg=k)
+            continue
+        if k in frozen:
+            np.testing.assert_array_equal(got, before[k].numpy(), err_msg=k)
+            np.testing.assert_array_equal(w, before[k].numpy(), err_msg=k)
+            continue
+        g, gp = want["grads"][k], named[k].grad.numpy()
+        sure = (np.minimum(np.abs(g), np.abs(gp)) > 1e-5) & (np.sign(g) == np.sign(gp))
+        diff = np.abs(got - w)
+        assert diff[sure].max(initial=0.0) <= 1e-6, k
+        assert diff.max() <= 2 * lr + 1e-6, k
+    # the BN freeze: stem and block BNs frozen, the downsample BNs train
+    assert "backbone_net.resnet.bn1.weight" in frozen
+    assert "backbone_net.resnet.layer1.0.bn2.bias" in frozen
+    ds = "backbone_net.resnet.layer2.0.downsample.1.weight"
+    assert ds not in frozen and not torch.equal(after[ds], before[ds])
+    rm = "backbone_net.resnet.bn1.running_mean"
+    assert not torch.equal(after[rm], before[rm])  # frozen BNs' statistics still move
+    return state, losses
