@@ -35,7 +35,26 @@ Phases, each printing one JSON line:
 4. serve   - the main path: a dexycb Predictor at bf16, batch 22, answers
              40 requests on each of the u8 and the f32 wire, in turn; p50
              and p90 latency, frames/s, peak memory, kernel launches per step
-             (from the wrappers' counters, zeroed just before the requests).
+             (from the wrappers' counters, zeroed just before the requests);
+             then the same batches with two steps in flight
+             (predict_async ahead, materialize behind): the p50 interval
+             between results and frames/s beside the blocking figures.
+   serve_closed - 66 closed-loop clients (3 x batch 22) submit single u8
+             frames to a BatchingServer (max_wait_ms 5, two steps in
+             flight) for 10 s: frames/s, mean batch fill, request
+             p50/p95/p99 (np.percentile), every response of its shape and
+             finite, kernel launches (counts zeroed just before).
+   serve_poisson - run_poisson_load (seed 7, 10 s, u8, max_wait_ms 5) at
+             0.25, 0.5, 0.8 and 1.2 times serve_closed's frames/s: offered
+             rate, goodput, submitted and completed (which must be equal),
+             mean batch fill, p50/p95/p99.
+   serve_async - then, on both wires: one warmed predict_async under
+             torch.cuda.set_sync_debug_mode (sync_sites: where a "warn" run
+             saw a synchronizing call; then "error", the gate);
+             materialize(predict_async(b)) bitwise equal to predict(b) on
+             eight batches; predict_async's host ms (median of 20) beside
+             the step's device ms (torch.profiler).  Then the sync check on
+             ho3d (DecoderBig) at u8.
 5. train   - the dexycb preset at full width (f32, batch 22) trains through
              the port's make_train_step: presampled and field-guided steps
              (branches forced through presample_gate), median ms per step,
@@ -74,8 +93,9 @@ Phases, each printing one JSON line:
              of ho3d_render run on the card.  Then eval_check: one batch of
              card outputs through the Evaluator on the card and on the CPU.
 9. kernels - one line listing every kernel with the numbers this run took
-             (the backward's `ho3d_*` fields from the ho3d train step, and
-             every kernel's launches per preset's train phase).
+             (the backward's `ho3d_*` fields from the ho3d train step,
+             every kernel's launches per preset's train phase, and the two
+             serving kernels' launches in serve_closed, `launches_server`).
 
 Any failed check raises, and the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no result.
@@ -750,9 +770,9 @@ def evaluate_preset(setting: str, device, batch_size: int = 22, n_batches: int =
     ``n_batches`` synthetic batches, kernel counts zeroed just before and
     read just after; the loop is held against a serial feed of the same
     outputs.  The eval step and the metrics are timed apart, on one batch,
-    after a warmup: the step's device time from torch.profiler (it
-    synchronises inside, so CUDA events around it would read the host) and
-    its host time around a synchronize; the metrics' host time around
+    after a warmup: the step's device time from torch.profiler (the step is
+    host-bound, so CUDA events around it would read the host's enqueueing)
+    and its host time around a synchronize; the metrics' host time around
     ``Evaluator.feed`` (which ends in its host transfer), and their device
     time and top operators from the profiler.  Then ``check_evaluator`` on
     that batch's card outputs."""
@@ -859,53 +879,102 @@ def evaluate_preset(setting: str, device, batch_size: int = 22, n_batches: int =
 
 # ---- phase 4: serving ----------------------------------------------------------
 
-def serve(cfg, batch_size: int, requests: int, device):
-    import numpy as np
-    import torch
+SERVE_SECONDS = 10.0  # each closed-loop and Poisson run
+POISSON_LOADS = (0.25, 0.5, 0.8, 1.2)  # offered rate / closed-loop frames per second
 
-    from hoisdf_torch.data.synthetic import synthetic_batch
-    from hoisdf_torch.ops import wire
-    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+
+def serving_predictors(cfg, batch_size: int, device):
+    """A warmed Predictor per wire, one set of drawn weights."""
     from hoisdf_torch.predictor import Predictor
 
     state = build_biased_model(cfg).state_dict()
-    f32 = Predictor(cfg, batch_size, "float32", device=device, state_dict=state)
-    u8 = Predictor(cfg, batch_size, "uint8", device=device, state_dict=state)
-    # eight distinct batches, sent in turn: u8 frames, as a camera gives
-    # them, for the u8 wire; the same values normalized on the host for the
-    # f32 wire
-    frames = [synthetic_batch(cfg, batch_size, seed=100 + i) for i in range(8)]
-    frames_u8 = [dict(fr, img=wire.quantize_image_u8(fr["img"])) for fr in frames]
-    frames = [dict(fr, img=fr["img"].astype(np.float32) / 255.0) for fr in frames_u8]
-    f32.warmup()
-    u8.warmup()
-    torch.cuda.reset_peak_memory_stats(device)
+    preds = {w: Predictor(cfg, batch_size, w, device=device, state_dict=state)
+             for w in ("uint8", "float32")}
+    for p in preds.values():
+        p.warmup()
+    return preds
 
+
+def serving_frames(cfg, batch_size: int):
+    """Eight distinct batches per wire: u8 frames, as a camera gives them,
+    for the u8 wire; the same values normalized on the host for the f32
+    wire."""
+    import numpy as np
+
+    from hoisdf_torch.data.synthetic import synthetic_batch
+    from hoisdf_torch.ops import wire
+    from hoisdf_torch.predictor import INPUT_KEYS
+
+    u8 = [{k: v for k, v in synthetic_batch(cfg, batch_size, seed=100 + i).items()
+           if k in INPUT_KEYS} for i in range(8)]
+    u8 = [dict(fr, img=wire.quantize_image_u8(fr["img"])) for fr in u8]
+    return {"uint8": u8,
+            "float32": [dict(fr, img=fr["img"].astype(np.float32) / 255.0) for fr in u8]}
+
+
+def _serve_shapes(cfg):
+    return {"mano_joints": (21, 3), "mano_verts": (778, 3), "hand_joints": (20, 3),
+            "obj_rot": (cfg.num_samp_obj, 3), "obj_trans": (cfg.num_samp_obj, 3)}
+
+
+def pipelined_intervals(predictor, frames, n: int, depth: int = 2):
+    """ms between successive results when ``depth`` steps are kept in flight
+    (predict_async ahead, materialize behind), over ``n`` batches."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    inflight, stamps = collections.deque(), [time.perf_counter()]
+    for i in range(n):
+        inflight.append(predictor.predict_async(frames[i % len(frames)]))
+        if len(inflight) == depth:
+            predictor.materialize(*inflight.popleft())
+            stamps.append(time.perf_counter())
+    while inflight:
+        predictor.materialize(*inflight.popleft())
+        stamps.append(time.perf_counter())
+    return np.diff(stamps) * 1e3
+
+
+def serve(preds, frames, cfg, batch_size: int, requests: int, device):
+    """Blocking predict calls, the wires in turn, then the same batches with
+    two steps in flight (the pipelined figure beside the blocking p50)."""
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
     outs = {"uint8": [], "float32": []}
     for i in range(requests):  # the wires take turns
-        outs["uint8"].append(u8.predict(frames_u8[i % len(frames)]))
-        outs["float32"].append(f32.predict(frames[i % len(frames)]))
+        for w in ("uint8", "float32"):
+            outs[w].append(preds[w].predict(frames[w][i % len(frames[w])]))
     torch.cuda.synchronize(device)
     counts = dict(launch_counts)
     steps = 2 * requests
     per_step = {k: v / steps for k, v in counts.items()}
+    pipelined = {w: pipelined_intervals(preds[w], frames[w], requests) for w in preds}
 
-    shapes = {"mano_joints": (batch_size, 21, 3), "mano_verts": (batch_size, 778, 3),
-              "hand_joints": (batch_size, 20, 3), "obj_rot": (batch_size, cfg.num_samp_obj, 3),
-              "obj_trans": (batch_size, cfg.num_samp_obj, 3)}
+    shapes = {k: (batch_size, *s) for k, s in _serve_shapes(cfg).items()}
     ok_shapes = all(o[k].shape == s for wire_outs in outs.values() for o in wire_outs
                     for k, s in shapes.items())
     finite = all(np.isfinite(o[k]).all() for wire_outs in outs.values() for o in wire_outs
                  for k in shapes)
     wire_diff = max(float(np.abs(a[k] - b[k]).max()) for a, b in
                     zip(outs["uint8"], outs["float32"]) for k in shapes)
-    lat = {w: p.latency_summary() for w, p in (("uint8", u8), ("float32", f32))}
+    lat = {w: p.latency_summary() for w, p in preds.items()}
+    pipe_p50 = {w: float(np.percentile(v, 50)) for w, v in pipelined.items()}
     res = {"phase": "serve", "batch": batch_size, "compute_dtype": cfg.compute_dtype,
            "requests_per_wire": requests,
            "p50_ms": {w: s["p50_ms"] for w, s in lat.items()},
+           "pipelined_interval_p50_ms": pipe_p50,
            "p90_ms": {w: s["p90_ms"] for w, s in lat.items()},
            "frames_per_s": {w: batch_size / s["p50_ms"] * 1e3 for w, s in lat.items()},
+           "pipelined_frames_per_s": {w: batch_size * len(v) / float(v.sum()) * 1e3
+                                      for w, v in pipelined.items()},
            "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
            "launches": counts, "launches_per_step": per_step,
            "wire_max_abs_diff": wire_diff, "shapes_ok": ok_shapes, "finite": finite}
@@ -914,7 +983,214 @@ def serve(cfg, batch_size: int, requests: int, device):
     emit(res)
     if not res["ok"]:
         raise AssertionError("serving check failed")
-    return res, f32
+    return res
+
+
+def sync_check(predictor, frames):
+    """One warmed predict_async under ``set_sync_debug_mode``: first "warn",
+    recording where each synchronizing call was made (for the line), then
+    "error", the gate.  The mode is restored after each.  -> (sites, error)."""
+    import warnings
+
+    import torch
+
+    prev = torch.cuda.get_sync_debug_mode()
+    handles, sites, error = [], [], None
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            handles.append(predictor.predict_async(frames))
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    # torch's own notice that the mode is a prototype is not a sync
+    sites = sorted({f"{w.filename}:{w.lineno}" for w in caught
+                    if "called a synchronizing CUDA operation" in str(w.message)})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles.append(predictor.predict_async(frames))
+    except RuntimeError as exc:
+        error = str(exc)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    for h in handles:
+        predictor.materialize(*h)
+    return sites, error
+
+
+def serve_async(preds, frames, cfg, batch_size: int, device):
+    """The async split on both wires of the dexycb serving predictors: no
+    synchronizing call in a warmed predict_async (sync_check),
+    materialize(predict_async(b)) bitwise equal to predict(b) on eight
+    batches, predict_async's host ms (median of 20, the card idle at each
+    call) beside the step's device ms (torch.profiler over two steps).  Then
+    the sync check on ho3d (DecoderBig) at u8.  Any failure raises."""
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.config import get_config
+    from hoisdf_torch.data.synthetic import synthetic_batch
+    from hoisdf_torch.ops import wire
+    from hoisdf_torch.predictor import INPUT_KEYS, Predictor
+
+    res = {"phase": "serve_async", "setting": cfg.setting, "batch": batch_size,
+           "compute_dtype": cfg.compute_dtype, "wires": {}}
+    ok = True
+    for w, p in preds.items():
+        sites, error = sync_check(p, frames[w][0])
+        bitwise = True
+        for fr in frames[w]:
+            a, b = p.materialize(*p.predict_async(fr)), p.predict(fr)
+            bitwise = bitwise and all(np.array_equal(a[k], b[k]) for k in b)
+        host_ms = []
+        for i in range(20):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            handle = p.predict_async(frames[w][i % len(frames[w])])
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            p.materialize(*handle)
+        dev = device_breakdown(lambda: p.materialize(*p.predict_async(frames[w][0])), 2)
+        res["wires"][w] = {"sync_free": error is None and not sites, "sync_sites": sites,
+                           "sync_error": error, "bitwise_equal_to_predict": bitwise,
+                           "predict_async_host_ms": float(np.median(host_ms)),
+                           "predict_async_host_ms_range": [min(host_ms), max(host_ms)],
+                           "step_device_ms": dev["device_ms_per_step"],
+                           "step_device_launches": dev["launches_per_step"]}
+        ok = ok and error is None and not sites and bitwise
+
+    ho3d_cfg = get_config("ho3d", compute_dtype="bfloat16")
+    ho3d = Predictor(ho3d_cfg, batch_size, "uint8", device=device,
+                     state_dict=build_biased_model(ho3d_cfg).state_dict())
+    ho3d.warmup()
+    fr = {k: v for k, v in synthetic_batch(ho3d_cfg, batch_size, seed=100).items()
+          if k in INPUT_KEYS}
+    fr["img"] = wire.quantize_image_u8(fr["img"])
+    sites, error = sync_check(ho3d, fr)
+    out = ho3d.predict(fr)
+    good = all(out[k].shape == (batch_size, *s) and np.isfinite(out[k]).all()
+               for k, s in _serve_shapes(ho3d_cfg).items())
+    res["ho3d_uint8"] = {"sync_free": error is None and not sites, "sync_sites": sites,
+                         "sync_error": error, "outputs_ok": good}
+    res["ok"] = ok and error is None and not sites and good
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("serve_async failed: a synchronizing call in predict_async, "
+                             "or its results differ from predict's")
+    return res
+
+
+def _percentiles(lat_s):
+    import numpy as np
+
+    lat = np.asarray(lat_s) * 1e3
+    if not lat.size:
+        return {"p50_ms": None, "p95_ms": None, "p99_ms": None}
+    return {f"p{q}_ms": float(np.percentile(lat, q)) for q in (50, 95, 99)}
+
+
+def single_frames(predictor, frames):
+    """The serving batches of ``predictor``'s wire as single frames."""
+    return [{k: v[i] for k, v in fr.items()} for fr in frames[predictor.transfer_dtype]
+            for i in range(predictor.batch_size)]
+
+
+def serve_closed(predictor, frames, cfg, clients: int, device, seconds: float = SERVE_SECONDS,
+                 max_wait_ms: float = 5.0):
+    """``clients`` closed-loop clients, each submitting one frame at a time to
+    a BatchingServer for ``seconds`` (as ``bench_components.py --serve``):
+    frames/s, mean batch fill, request p50/p95/p99; every response has its
+    shapes and is finite; kernel counts zeroed just before, read just
+    after."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+    from hoisdf_torch.predictor import BatchingServer
+
+    pool = single_frames(predictor, frames)
+    shapes = _serve_shapes(cfg)
+    latencies, bad, errors, lock = [], [0], [], threading.Lock()
+
+    def client(i: int):
+        frame = pool[i % len(pool)]
+        try:
+            while time.perf_counter() < stop_at:
+                t0 = time.perf_counter()
+                out = srv.submit(frame).result(timeout=300)
+                dt = time.perf_counter() - t0
+                good = all(out[k].shape == s and np.isfinite(out[k]).all()
+                           for k, s in shapes.items())
+                with lock:
+                    latencies.append(dt)
+                    bad[0] += not good
+        except Exception as exc:  # recorded; the phase fails below
+            with lock:
+                errors.append(repr(exc)[:200])
+
+    torch.cuda.synchronize(device)
+    reset_launch_counts()
+    with BatchingServer(predictor, max_wait_ms=max_wait_ms) as srv:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+        t0 = time.perf_counter()
+        stop_at = t0 + seconds
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=seconds + 600)
+        elapsed = time.perf_counter() - t0
+        served, batches = srv.frames_served, srv.batches_dispatched
+    torch.cuda.synchronize(device)
+    counts = dict(launch_counts)
+    res = {"phase": "serve_closed", "setting": cfg.setting, "batch": predictor.batch_size,
+           "wire": predictor.transfer_dtype, "clients": clients, "seconds": elapsed,
+           "max_wait_ms": max_wait_ms, "frames_per_s": served / elapsed,
+           "frames_served": served, "batches": batches,
+           "mean_batch_fill": served / max(batches, 1), **_percentiles(latencies),
+           "responses": len(latencies), "bad_responses": bad[0], "errors": errors[:5],
+           "launches": counts,
+           "launches_per_batch": {k: v / max(batches, 1) for k, v in counts.items()}}
+    res["ok"] = (not errors and bad[0] == 0 and len(latencies) == served > 0
+                 and not any(t.is_alive() for t in threads)
+                 and counts["sdf_mlp"] >= 8 * batches and counts["gather_lerp"] >= 9 * batches)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("serve_closed failed: a request failed, a response was not "
+                             "finite or of its shape, or the kernels did not run")
+    return res
+
+
+def serve_poisson(predictor, frames, cfg, capacity_fps: float, seconds: float = SERVE_SECONDS,
+                  max_wait_ms: float = 5.0, seed: int = 7):
+    """run_poisson_load at each of POISSON_LOADS times ``capacity_fps`` (the
+    closed-loop frames/s), one BatchingServer per rate: offered rate,
+    goodput, submitted and completed, mean batch fill, p50/p95/p99.  Fails
+    unless every submitted request completed at every rate."""
+    from hoisdf_torch.predictor import BatchingServer, run_poisson_load
+
+    pool = single_frames(predictor, frames)
+    rates = []
+    for load in POISSON_LOADS:
+        with BatchingServer(predictor, max_wait_ms=max_wait_ms) as srv:
+            rep = run_poisson_load(srv, pool, load * capacity_fps, seconds, seed=seed)
+            batches = srv.batches_dispatched
+        rates.append({"load": load, "offered_hz": rep["offered_hz"],
+                      "goodput_hz": rep["goodput_hz"], "submitted": rep["submitted"],
+                      "completed": rep["completed"], "elapsed_s": rep["elapsed_s"],
+                      "batches": batches,
+                      "mean_batch_fill": rep["completed"] / max(batches, 1),
+                      **_percentiles(rep["latencies_s"])})
+    res = {"phase": "serve_poisson", "setting": cfg.setting, "batch": predictor.batch_size,
+           "wire": predictor.transfer_dtype, "max_wait_ms": max_wait_ms, "seed": seed,
+           "seconds": seconds, "capacity_fps": capacity_fps, "rates": rates}
+    res["ok"] = all(r["completed"] == r["submitted"] > 0 for r in rates)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("serve_poisson failed: a submitted request did not complete")
+    return res
 
 
 PROFILE_GROUPS = ("gather_lerp_bwd", "gather_lerp", "sdf_mlp", "Memcpy")
@@ -1469,10 +1745,16 @@ def main() -> int:
     for setting in ("dexycb", "ho3d", "ho3d_render"):
         compare_forward(get_config(setting, compute_dtype="float32"), 2, device)
 
-    serve_res, predictor = serve(get_config("dexycb", compute_dtype="bfloat16"),
-                                 serve_batch, requests=40, device=device)
-    profile_step(predictor)
-    del predictor
+    serve_cfg = get_config("dexycb", compute_dtype="bfloat16")
+    predictors = serving_predictors(serve_cfg, serve_batch, device)
+    frames = serving_frames(serve_cfg, serve_batch)
+    serve_res = serve(predictors, frames, serve_cfg, serve_batch, requests=40, device=device)
+    closed = serve_closed(predictors["uint8"], frames, serve_cfg, 3 * serve_batch, device)
+    serve_poisson(predictors["uint8"], frames, serve_cfg, closed["frames_per_s"])
+    # the phases that run torch.profiler come after the host-timed ones
+    serve_async(predictors, frames, serve_cfg, serve_batch, device)
+    profile_step(predictors["float32"])
+    del predictors
 
     train_res, bwd_step = train(train_cfg, train_cfg.train_batch_size, device)
     compare_train_step(train_cfg, 2, device)
@@ -1504,6 +1786,7 @@ def main() -> int:
     kernels = [
         {"name": "sdf_mlp", "route": "cuda", "source": "hoisdf_torch/csrc/sdf_mlp.cu",
          "replaces": SDF_TPU, "launches": launches["sdf_mlp"],
+         "launches_server": closed["launches"]["sdf_mlp"],
          "launches_eval": {s: r["launches"]["sdf_mlp"] for s, r in evals.items()},
          "max_abs_err": sdf_timed["max_abs_err"], "ms": sdf_timed["ms"],
          "plain_ms": sdf_timed["plain_ms"], "bound_ms": sdf_timed["bound_ms"],
@@ -1518,6 +1801,7 @@ def main() -> int:
         {"name": "gather_lerp", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_TPU,
          "launches": launches["gather_lerp"],
+         "launches_server": closed["launches"]["gather_lerp"],
          "max_abs_err": gather_timed["max_abs_err"],
          "ms": gather_timed["ms"], "plain_ms": gather_timed["plain_ms"],
          "bound_ms": gather_timed["bound_ms"], "bound_by": gather_timed["bound_by"],

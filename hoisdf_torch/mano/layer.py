@@ -23,18 +23,33 @@ from hoisdf_torch.mano.model import (
 from hoisdf_torch.ops.rotations import batch_rodrigues
 
 
+_MODEL_FIELDS = ("betas", "shapedirs", "posedirs", "v_template", "j_regressor", "weights")
+
+
 class ManoBuffers(NamedTuple):
+    """The model's f32 arrays and the forward's index constants, all on one
+    device (``to`` moves them together): indexing with host lists would copy
+    them to the card on every call and hold the host until the copy ran."""
+
     betas: torch.Tensor  # [10]
     shapedirs: torch.Tensor  # [778, 3, 10]
     posedirs: torch.Tensor  # [778, 3, 135]
     v_template: torch.Tensor  # [778, 3]
     j_regressor: torch.Tensor  # [16, 778]
     weights: torch.Tensor  # [778, 16]
+    lev1: torch.Tensor  # [5] i64, the FK levels' joints (LEV*_IDXS)
+    lev2: torch.Tensor  # [5]
+    lev3: torch.Tensor  # [5]
+    transform_reorder: torch.Tensor  # [16]
+    tips: torch.Tensor  # [5] fingertip vertices
+    joint_reorder: torch.Tensor  # [21]
 
     @classmethod
     def from_model(cls, m: ManoModel, device="cpu") -> "ManoBuffers":
-        return cls(*(torch.as_tensor(getattr(m, f), dtype=torch.float32).to(device)
-                     for f in cls._fields))
+        arrays = [torch.as_tensor(getattr(m, f), dtype=torch.float32) for f in _MODEL_FIELDS]
+        index = [torch.as_tensor(i, dtype=torch.long) for i in (
+            LEV1_IDXS, LEV2_IDXS, LEV3_IDXS, TRANSFORM_REORDER, TIPS_RIGHT, JOINT_REORDER)]
+        return cls(*arrays, *index).to(device)
 
     def to(self, device) -> "ManoBuffers":
         return ManoBuffers(*(t.to(device) for t in self))
@@ -71,7 +86,7 @@ def mano_forward(buffers: ManoBuffers, pose_coeffs: torch.Tensor,
         joints = torch.einsum("jv,bvd->bjd", buffers.j_regressor, v_shaped)
     v_posed = v_shaped + torch.einsum("vdp,bp->bvd", buffers.posedirs, pose_map)
 
-    lev1, lev2, lev3 = (torch.tensor(i, device=dev) for i in (LEV1_IDXS, LEV2_IDXS, LEV3_IDXS))
+    lev1, lev2, lev3 = buffers.lev1, buffers.lev2, buffers.lev3
     root_j = joints[:, 0]
     root_t = _rigid_transform(root_rot, root_j)
     lev1_t = root_t[:, None] @ _rigid_transform(rot_map[:, lev1 - 1],
@@ -79,7 +94,7 @@ def mano_forward(buffers: ManoBuffers, pose_coeffs: torch.Tensor,
     lev2_t = lev1_t @ _rigid_transform(rot_map[:, lev2 - 1], joints[:, lev2] - joints[:, lev1])
     lev3_t = lev2_t @ _rigid_transform(rot_map[:, lev3 - 1], joints[:, lev3] - joints[:, lev2])
     all_t = torch.cat([root_t[:, None], lev1_t, lev2_t, lev3_t], dim=1)
-    all_t = all_t[:, torch.tensor(TRANSFORM_REORDER, device=dev)]  # [B,16,4,4]
+    all_t = all_t[:, buffers.transform_reorder]  # [B,16,4,4]
 
     joints_h = torch.cat([joints, torch.zeros(batch, 16, 1, dtype=dtype, device=dev)], dim=-1)
     tmp = torch.einsum("bjrc,bjc->bjr", all_t, joints_h)
@@ -92,8 +107,7 @@ def mano_forward(buffers: ManoBuffers, pose_coeffs: torch.Tensor,
                                                device=dev)], dim=-1)
     verts = torch.einsum("bvrc,bvc->bvr", skin_t, v_posed_h)[..., :3]
 
-    tips = torch.tensor(TIPS_RIGHT, device=dev)
-    jtr = torch.cat([all_t[:, :, :3, 3], verts[:, tips]], dim=1)
-    jtr = jtr[:, torch.tensor(JOINT_REORDER, device=dev)]
+    jtr = torch.cat([all_t[:, :, :3, 3], verts[:, buffers.tips]], dim=1)
+    jtr = jtr[:, buffers.joint_reorder]
     center = jtr[:, :1]
     return (verts - center) * 1000.0, (jtr - center) * 1000.0

@@ -7,6 +7,7 @@ P query points per image.  The multi-level gather is one launch of the
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
@@ -33,9 +34,20 @@ def project_points(points_cam: torch.Tensor, cam_intr: torch.Tensor) -> torch.Te
     return p2d[..., :2] / p2d[..., 2:3]
 
 
+@functools.lru_cache(maxsize=16)
+def _grid_normalizer(img_shape: Tuple[int, int], dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """[(W-1)/2, (H-1)/2] on ``device``, made once: built from the host on
+    every call it would hold the host until the card reached the copy.  A
+    tensor, not Python floats: the card divides by a host scalar as a
+    multiply by its reciprocal, which may round otherwise than the JAX
+    function's division."""
+    h, w = img_shape
+    with torch.inference_mode(False):
+        return torch.tensor([(w - 1) / 2.0, (h - 1) / 2.0], dtype=dtype, device=device)
+
+
 def pixels_to_grid(pix: torch.Tensor, img_shape: Tuple[int, int]) -> torch.Tensor:
     """Pixel coords -> [-1, 1] grid coords; the normalizer is (size-1)/2."""
-    h, w = img_shape
-    normalizer = torch.tensor([(w - 1) / 2.0, (h - 1) / 2.0], dtype=pix.dtype,
-                              device=pix.device)
+    normalizer = _grid_normalizer(tuple(img_shape), pix.dtype, pix.device)
     return (pix - normalizer) / normalizer

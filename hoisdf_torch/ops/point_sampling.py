@@ -7,14 +7,51 @@ out-of-bbox points score +inf, and each stage keeps the ``keep`` smallest
 |sdf|.  Selection is ``argsort(stable=True)``, which breaks ties by the lower
 index exactly like ``lax.top_k``; out-of-box probes all tie at +inf, so the
 tie order decides which cells survive the pruning stages.
+
+The cascade's constants (cell corners, child offsets, the base lattice) are
+made once per device and shape: built from host data on every call, each
+would hold the host until the card reached its copy.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+
+def _on_device(value: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host constant on ``device``; a normal tensor even when first asked
+    for under inference mode."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(value).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _corner_offsets(h: float, device: torch.device) -> torch.Tensor:
+    """The 8 corner offsets of a cell of half-width ``h``: [8, 3] f32."""
+    return _on_device(np.array([[sx * h, sy * h, sz * h] for sx in (-1, 1)
+                                for sy in (-1, 1) for sz in (-1, 1)], dtype=np.float32),
+                      device)
+
+
+@functools.lru_cache(maxsize=16)
+def _child_offsets(s: int, child_factor: int, bins_n: int,
+                   device: torch.device) -> torch.Tensor:
+    """Flat-index offsets of a cell's s^3 children: [s^3] i64."""
+    r = np.arange(s, dtype=np.int64) * child_factor
+    return _on_device((r[:, None, None] * bins_n * bins_n + r[None, :, None] * bins_n
+                       + r[None, None, :]).reshape(-1), device)
+
+
+@functools.lru_cache(maxsize=16)
+def _base_cells(bins_n: int, f0: int, device: torch.device) -> torch.Tensor:
+    """The first stage's cell bases, every f0-th lattice point: [1, M] i64."""
+    r = np.arange(bins_n // f0, dtype=np.int64) * f0
+    return _on_device((r[:, None, None] * bins_n * bins_n + r[None, :, None] * bins_n
+                       + r[None, None, :]).reshape(1, -1), device)
 
 
 def scaled_to_cam(pts_scaled: torch.Tensor, center: torch.Tensor, sdf_scale: float):
@@ -45,12 +82,7 @@ def _cell_overlaps_bbox(probe_pts, factor, step, center, cam_intr, bbox, sdf_sca
     count as visible.  At factor 1 this is the z-guarded point test."""
     if factor == 1:
         return _in_bbox(probe_pts, center, cam_intr, bbox, sdf_scale, z_guard=True)
-    h = (factor - 1) * 0.5 * step
-    corners = torch.tensor(
-        [[sx * h, sy * h, sz * h]
-         for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
-        dtype=torch.float32, device=probe_pts.device,
-    )
+    corners = _corner_offsets((factor - 1) * 0.5 * step, probe_pts.device)
     pts = probe_pts[:, :, None, :] + corners[None, None]  # [B, M, 8, 3]
     cam_pts = scaled_to_cam(pts.reshape(pts.shape[0], -1, 3), center,
                             sdf_scale).reshape(pts.shape)
@@ -109,13 +141,7 @@ def sdf_guided_sample_hierarchical(
         return origin + (factor - 1) * 0.5 * step
 
     def child_bases(bases, parent_factor, child_factor):
-        s = parent_factor // child_factor
-        offs = (
-            np.arange(s)[:, None, None] * child_factor * bins_n * bins_n
-            + np.arange(s)[None, :, None] * child_factor * bins_n
-            + np.arange(s)[None, None, :] * child_factor
-        ).reshape(-1)
-        offs = torch.as_tensor(offs, dtype=bases.dtype, device=dev)
+        offs = _child_offsets(parent_factor // child_factor, child_factor, bins_n, dev)
         return (bases[..., None] + offs[None, None]).reshape(b, -1)
 
     def probe(bases, factor, keep, final):
@@ -134,10 +160,7 @@ def sdf_guided_sample_hierarchical(
         return torch.take_along_dim(bases, sel, dim=1), pts, sdf, sel
 
     f0 = factors[0]
-    r = np.arange(bins_n // f0) * f0
-    base0 = (r[:, None, None] * bins_n * bins_n + r[None, :, None] * bins_n
-             + r[None, None, :]).reshape(-1)
-    bases = torch.as_tensor(base0, dtype=torch.long, device=dev)[None].expand(b, -1)
+    bases = _base_cells(bins_n, f0, dev).expand(b, -1)
     bases, _, _, _ = probe(bases, f0, levels[0][1], final=False)
     for (pf, _), (cf, keep) in zip(levels[:-1], levels[1:]):
         bases, _, _, _ = probe(child_bases(bases, pf, cf), cf, keep, final=False)

@@ -11,6 +11,7 @@ and are cast back on the card; a mask that is not exactly binary stays f32.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -23,6 +24,16 @@ _BINARY_MASK_KEYS = ("hand_seg", "obj_seg")
 def u8_lut_np() -> np.ndarray:
     """The 256-entry f32 normalize table, rounded on the host."""
     return np.arange(256, dtype=np.float32) / 255.0
+
+
+@functools.lru_cache(maxsize=8)
+def _lut(device: torch.device) -> torch.Tensor:
+    """The table on ``device``, made once per device: a step that built it
+    from the host on every call would wait on the card for the copy.  A
+    normal tensor even when first asked for under inference mode, so a
+    train step may use it too."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(u8_lut_np()).to(device)
 
 
 def quantize_image_u8(img) -> np.ndarray:
@@ -77,5 +88,4 @@ def decode_inputs(inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     img = inputs.get("img")
     if img is None or img.dtype != torch.uint8:
         return inputs
-    lut = torch.from_numpy(u8_lut_np()).to(img.device)
-    return dict(inputs, img=lut[img.long()])
+    return dict(inputs, img=_lut(img.device)[img.long()])

@@ -57,9 +57,23 @@ def disable_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _to_device(arrays: Mapping, dev: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: (torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray)
-                else v).to(dev, non_blocking=True) for k, v in arrays.items()}
+def _to_device(arrays: Mapping, dev: torch.device, pin: bool = False
+               ) -> Dict[str, torch.Tensor]:
+    """numpy arrays or tensors -> tensors on ``dev``, copied with
+    ``non_blocking``.  A tensor already on ``dev`` passes as it is; a pinned
+    host tensor is copied without holding the host.  A numpy array lies in
+    pageable memory, whose copy may hold the host until the card reaches it;
+    with ``pin`` (on the card) it is first copied into pinned memory from
+    torch's caching host allocator, which keeps the block until its copy
+    has run."""
+    out = {}
+    for k, v in arrays.items():
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+            if pin and dev.type == "cuda":
+                v = v.pin_memory()
+        out[k] = v.to(dev, non_blocking=True)
+    return out
 
 
 # ---- optimizer and schedule --------------------------------------------------
@@ -234,7 +248,11 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
     """Eval forward on ``device``: field-guided sampling, running BN, MANO on
     the final decoder layer.  Moves ``model`` to the device and puts it in
     eval mode.  The returned step takes numpy arrays or tensors (u8 or f32
-    image wire) and returns tensors on the device.
+    image wire) and returns tensors on the device.  It makes no call that
+    waits for the card: tensors already on the device pass as they are,
+    pinned host tensors and numpy arrays (through pinned memory) are copied
+    without holding the host, so a caller can enqueue the next step while
+    this one runs.
 
     ``supervise_sdf`` defaults to the DexYCB behaviour (also query the SDF at
     the ground-truth sample points); pass False for serving.  Under
@@ -249,7 +267,7 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
 
     def eval_step(inputs: Mapping) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            batch = _to_device(inputs, dev)
+            batch = _to_device(inputs, dev, pin=True)
             out = model(wire.decode_inputs(batch), supervise_sdf=supervise)
             preds = {
                 "obj_rot": out["obj_rot"][-1],
