@@ -6,6 +6,11 @@ Phases, each printing one JSON line:
 
 1. build   - nvcc builds the CUDA kernels from hoisdf_torch/csrc into
              hoisdf_torch/_build (sm_90a); seconds, card name, power limit.
+   native  - beside it, g++ builds the native image pipeline
+             (hoisdf_torch/native/src/pipeline.cc) into the same directory:
+             seconds, g++'s version, whether the jpeg/png headers were found,
+             and the decode route ("libjpeg", or "pil" where the library was
+             built without its decoders).  A failed build fails the run.
 2. kernel  - each kernel against its plain PyTorch version on the card, f32
              and bf16, at the serving shapes, with its time, the plain
              version's time, one stock PyTorch call's time and its bound.
@@ -77,12 +82,24 @@ Phases, each printing one JSON line:
    launches.  The train, train_check and kernel lines carry `setting`.
 7. data    - DexYCB and HO3D from disk: trees in the original's layout at
              640 x 480 (tests/torch_data_fixtures.py) in a temporary
-             directory; the loader timed in thread and process mode beside
-             the dexycb train step; train_loop.main trains dexycb at full
-             width for three iterations with the test split's eval at its
-             snapshot; evaluate.main evaluates that snapshot on the DexYCB
-             test split and random weights on the HO3D evaluation split (the
-             codalab JSON); outputs present and finite, kernels launched.
+             directory.  The loader on the DexYCB train split (9 batches of
+             22), with the native image pipeline and with PIL, in 1, 2, 4, 8
+             and 15 threads and in 15 processes: start-up, first batch and
+             steady-state ms per batch beside the dexycb train step
+             (card_waits_on_loader); each backend's sample split by seam in
+             one thread, each seam's calls replayed in 1 and 8 threads; the
+             two backends' eval samples bitwise equal on the DexYCB test and
+             HO3D evaluation splits.  train_loop.main trains dexycb at full
+             width for one epoch on the native backend, with the test split's
+             eval at its snapshot; evaluate.main evaluates that snapshot on
+             the DexYCB test split and random weights on the HO3D evaluation
+             split (the codalab JSON); outputs present and finite, kernels
+             launched.
+   warp    - ops/warp.py's affine_warp_image at batch 22, 640 x 480 -> 256
+             x 256 u8 (train crops with a spin, eval crops without): the card
+             against the CPU (nearest: differing pixels, which must be 0;
+             bilinear: max abs error), the eval crops against PIL, and the
+             times on the card and on the CPU.
 8. eval    - each preset (dexycb, dexycb_full, ho3d, ho3d_render) at full
              width, bf16, batch 22, u8 wire: the port's Evaluator over three
              synthetic batches through make_eval_step on the card, by
@@ -1591,41 +1608,162 @@ def _results_txt(path) -> dict:
         return {k.strip(): float(v) for k, _, v in (ln.partition(":") for ln in f if " :  " in ln)}
 
 
-def time_loader(dataset, batch_size: int, workers: int, mode: str, epochs: int = 2) -> dict:
-    """The loader over ``epochs`` shuffled epochs of ``dataset``, with no
-    consumer work: its start-up ms (the process workers' spawn), the first
-    batch's ms and the mean ms per batch (first included), host clock."""
+LOADER_THREADS = (1, 2, 4, 8, 15)  # thread workers timed per backend; then 15 processes
+LOADER_BATCHES = 9  # batches a loader epoch: the first, then eight in steady state
+SEAMS = ("open_image", "flip_image", "finalize_image", "warp_seg", "to_float_image")
+
+
+def time_loader(dataset, batch_size: int, workers: int, mode: str, epochs: int = 1) -> dict:
+    """``epochs`` shuffled epochs of ``dataset`` with no consumer work, host
+    clock: the loader's start-up ms (for processes, until one probe task per
+    worker has run), the first batch's ms, every batch's ms, and
+    ``steady_ms_per_batch``, the mean over the last epoch's batches (the
+    first batch left out).  Spawned workers keep joining for seconds after
+    the start-up probe returns (``scripts/probe_torch_loader.py --trace``),
+    so process mode takes two epochs and its first is the warm-up."""
     from hoisdf_torch.data.loader import DataLoader
 
     t0 = time.perf_counter()
     with DataLoader(dataset, batch_size, shuffle=True, num_workers=workers, drop_last=True,
                     worker_mode=mode) as loader:
         start_ms = (time.perf_counter() - t0) * 1e3
-        per_batch, first_ms = [], None
+        per_batch = []
         for epoch in range(epochs):
             loader.set_epoch(epoch)
             t0 = time.perf_counter()
             for batch in loader:
                 per_batch.append((time.perf_counter() - t0) * 1e3)
-                first_ms = per_batch[-1] if first_ms is None else first_ms
                 t0 = time.perf_counter()
-    return {"startup_ms": start_ms, "first_batch_ms": first_ms,
-            "ms_per_batch": sum(per_batch) / len(per_batch), "batches": len(per_batch),
+    steady = per_batch[1:] if epochs == 1 else per_batch[-len(loader):]
+    return {"workers": workers, "mode": mode, "epochs": epochs, "startup_ms": start_ms,
+            "first_batch_ms": per_batch[0], "steady_ms_per_batch": sum(steady) / len(steady),
+            "steady_ms_min": min(steady), "steady_ms_max": max(steady),
+            "steady_batches": len(steady), "batch_ms": per_batch,
             "batch_img_shape": list(batch["img"].shape)}
 
 
-def data_phase(device, step_ms: float, batch_size: int = 22, n_batches: int = 3) -> dict:
+class _TimedNpz:
+    """An ``np.load`` result whose array reads (a zip member each) count to
+    the load's time."""
+
+    def __init__(self, npz, add):
+        self._npz, self._add = npz, add
+
+    def __getitem__(self, key):
+        t0 = time.perf_counter()
+        out = self._npz[key]
+        self._add(time.perf_counter() - t0)
+        return out
+
+
+def sample_split(dataset, n: int) -> dict:
+    """ms per sample of each image seam (``data/image_io.py``), of ``np.load``
+    with its npz reads (the label and SDF files), and of the rest (MANO and
+    augmentation numpy, the seg comparisons, assembly), over ``n`` samples in
+    one thread, host clock.  Then each seam's recorded calls run again in
+    1 and in 8 threads: a seam whose work holds the GIL gains little."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from hoisdf_torch.data import image_io as IIO
+
+    spent = dict.fromkeys(SEAMS + ("np_load",), 0.0)
+    calls = {k: [] for k in spent}
+    originals = {name: getattr(IIO, name) for name in SEAMS}
+    np_load = np.load
+
+    def add(name):
+        def f(dt):
+            spent[name] += dt
+        return f
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[name] += time.perf_counter() - t0
+            calls[name].append((fn, args, kwargs))
+            return out
+        return wrapper
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = np_load(*args, **kwargs)
+        spent["np_load"] += time.perf_counter() - t0
+        calls["np_load"].append((np_load, args, kwargs))
+        return _TimedNpz(out, add("np_load")) if isinstance(out, np.lib.npyio.NpzFile) else out
+
+    try:
+        for name in SEAMS:
+            setattr(IIO, name, timed(name, originals[name]))
+        np.load = timed_load
+        t0 = time.perf_counter()
+        for idx in range(n):
+            dataset.__getitem__(idx, epoch=0)
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(IIO, name, fn)
+        np.load = np_load
+    out = {f"{k}_ms": v / n * 1e3 for k, v in spent.items()}
+    out["rest_ms"] = (total - sum(spent.values())) / n * 1e3
+    out["sample_ms"] = total / n * 1e3
+
+    def replay(call):
+        fn, args, kwargs = call
+        res = fn(*args, **kwargs)
+        if isinstance(res, np.lib.npyio.NpzFile):
+            res = [res[k] for k in res.files]
+        return res
+
+    scaling = {}
+    for name, recorded in calls.items():
+        ms = {}
+        for threads in (1, 8):
+            with ThreadPoolExecutor(threads) as pool:
+                t0 = time.perf_counter()
+                list(pool.map(replay, recorded))
+                ms[threads] = (time.perf_counter() - t0) * 1e3
+        scaling[name] = {"calls": len(recorded), "ms_1_thread": ms[1], "ms_8_threads": ms[8],
+                         "speedup_8": ms[1] / ms[8]}
+    out["seam_scaling"] = scaling
+    return out
+
+
+def backend_agreement(native_ds, pil_ds) -> dict:
+    """Every eval sample of the native and the PIL dataset: the keys that
+    differ and the image bytes that differ (expected none)."""
+    import numpy as np
+
+    keys, img_bytes = set(), 0
+    for idx in range(len(native_ds)):
+        a, b = native_ds.__getitem__(idx), pil_ds.__getitem__(idx)
+        keys |= {k for k in set(a) | set(b) if k not in a or k not in b
+                 or not np.array_equal(a[k], b[k])}
+        img_bytes += int((np.rint(a["img"] * 255) != np.rint(b["img"] * 255)).sum())
+    return {"samples": len(native_ds), "keys_differing": sorted(keys),
+            "img_bytes_differing": img_bytes, "bitwise": not keys}
+
+
+def data_phase(device, step_ms: float, native: dict, batch_size: int = 22) -> dict:
     """DexYCB and HO3D read from disk: a DexYCB tree in the small split's
-    layout and an HO3D tree, at the datasets' 640 x 480, are written to a
-    temporary directory (``tests/torch_data_fixtures.py``).  ``train_loop.
-    main`` trains the dexycb preset at full width on the card for
-    ``n_batches`` iterations (one epoch), with the test split's eval at its
-    snapshot; ``evaluate.main`` evaluates that snapshot on the DexYCB test
-    split and random weights on the HO3D evaluation split (the codalab JSON
-    written).  Each split's tail is a short batch.  The loader is timed in
-    thread and in process mode at ``num_data_workers``, beside the train
-    step's ``step_ms``: the card waits on it when it takes longer a batch.
-    Kernel counts are zeroed before each main and read after."""
+    layout (``LOADER_BATCHES`` train batches, a test split of one batch and a
+    tail) and an HO3D tree, at the datasets' 640 x 480, are written to a
+    temporary directory (``tests/torch_data_fixtures.py``).  The loader is
+    timed on the train split with the native pipeline (``native_pipeline=
+    "on"``; ``native`` is its build report) and with PIL ("off"), in threads
+    (``LOADER_THREADS``) and in 15 processes, each in steady state, beside the
+    train step's ``step_ms``: the card waits on a backend whose steady ms at
+    ``num_data_workers`` threads exceeds it.  Each backend's sample is split
+    by seam in one thread (:func:`sample_split`), and its eval samples are held
+    against the other backend's on the DexYCB test and the HO3D evaluation
+    splits.  Then ``train_loop.main`` trains the dexycb preset at full width
+    on the card on the native backend for one epoch, with the test split's
+    eval at its snapshot, and ``evaluate.main`` evaluates that snapshot on the
+    DexYCB test split and random weights on the HO3D evaluation split (the
+    codalab JSON written).  Kernel counts are zeroed before each main and
+    read after."""
     import os
     import tempfile
 
@@ -1637,10 +1775,13 @@ def data_phase(device, step_ms: float, batch_size: int = 22, n_batches: int = 3)
 
     from hoisdf_torch import evaluate, train_loop
     from hoisdf_torch.config import get_config
+    from hoisdf_torch.data.ho3d import HO3DDataset
     from hoisdf_torch.mano.model import make_synthetic_mano
     from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    res = {"phase": "data", "batch": batch_size, "cpu_count": os.cpu_count()}
+    n_batches = LOADER_BATCHES
+    res = {"phase": "data", "batch": batch_size, "cpu_count": os.cpu_count(),
+           "decode": native["decode"]}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         simple = write_simple_models(os.path.join(tmp, "simple"), verts=TEMPLATE_VERTS)
@@ -1650,23 +1791,39 @@ def data_phase(device, step_ms: float, batch_size: int = 22, n_batches: int = 3)
         ho3d = dict(write_ho3d(os.path.join(tmp, "ho3d"), n_eval=batch_size + 1,
                                n_hand=1000, n_obj=400), simple_object_models_dir=simple)
         res["write_s"] = time.perf_counter() - t0
-        cfg = get_config("dexycb", **dex)
-        dataset = evaluate.open_dataset(cfg, "train", make_synthetic_mano(0))
-        res["samples"] = {"dexycb_train": len(dataset), "dexycb_test": batch_size + 1,
+        mano = make_synthetic_mano(0)
+        cfgs = {b: get_config("dexycb", native_pipeline=m, **dex)
+                for b, m in (("native", "on"), ("pil", "off"))}
+        train_sets = {b: evaluate.open_dataset(c, "train", mano) for b, c in cfgs.items()}
+        if not train_sets["native"].native or train_sets["pil"].native:
+            raise AssertionError("native_pipeline 'on' / 'off' did not pick the backends")
+        res["samples"] = {"dexycb_train": len(train_sets["pil"]), "dexycb_test": batch_size + 1,
                           "ho3d_evaluation": batch_size + 1}
-        res["num_data_workers"] = cfg.num_data_workers
-        res["loader"] = {mode: time_loader(dataset, batch_size, cfg.num_data_workers, mode)
-                         for mode in ("thread", "process")}
+        workers = cfgs["pil"].num_data_workers
+        res["num_data_workers"] = workers
+        res["loader"] = {b: {**{f"thread_{w}": time_loader(ds, batch_size, w, "thread")
+                                for w in LOADER_THREADS},
+                             f"process_{workers}": time_loader(ds, batch_size, workers, "process",
+                                                               epochs=2)}
+                         for b, ds in train_sets.items()}
+        res["split"] = {b: sample_split(ds, 3 * batch_size) for b, ds in train_sets.items()}
         res["train_step_ms"] = step_ms
-        res["card_waits_on_loader"] = {mode: r["ms_per_batch"] > step_ms
-                                       for mode, r in res["loader"].items()}
+        res["card_waits_on_loader"] = {
+            b: {mode: r[f"{mode}_{workers}"]["steady_ms_per_batch"] > step_ms
+                for mode in ("thread", "process")} for b, r in res["loader"].items()}
+        res["eval_backends_agree"] = {
+            "dexycb_test": backend_agreement(
+                *(evaluate.open_dataset(cfgs[b], "test", mano) for b in ("native", "pil"))),
+            "ho3d_evaluation": backend_agreement(
+                *(HO3DDataset(get_config("ho3d", native_pipeline=m, **ho3d), "evaluation", mano)
+                  for m in ("on", "off")))}
 
         run = os.path.join(tmp, "run")
         torch.cuda.synchronize(device)
         reset_launch_counts()
         t0 = time.perf_counter()
         train_loop.main(["--setting", "dexycb", "--end_epoch", "1", "--run_dir_name", "data",
-                         *_cfg_args(dict(dex, output_dir=run))])
+                         *_cfg_args(dict(dex, output_dir=run, native_pipeline="on"))])
         torch.cuda.synchronize(device)
         res["train_loop_s"] = time.perf_counter() - t0
         res["train_loop_launches"] = dict(launch_counts)
@@ -1675,7 +1832,8 @@ def data_phase(device, step_ms: float, batch_size: int = 22, n_batches: int = 3)
             rows = [json.loads(line) for line in f]
         with open(os.path.join(out, "log", "train_logs.txt")) as f:
             iters = sum(" itr " in line for line in f)
-        res["train_loop"] = {"iterations": iters, "first_loss": rows[0]["train_total"],
+        res["train_loop"] = {"native_pipeline": "on", "iterations": iters,
+                             "first_loss": rows[0]["train_total"],
                              "eval": {k: v for k, v in rows[-1].items() if k != "step"},
                              "snapshot": os.listdir(os.path.join(out, "model_dump")),
                              "debug_images": os.listdir(os.path.join(out, "debug_images"))}
@@ -1701,7 +1859,12 @@ def data_phase(device, step_ms: float, batch_size: int = 22, n_batches: int = 3)
     finite = bool(np.isfinite([tl["first_loss"], *tl["eval"].values(),
                                *(v for e in evals.values() for v in e["results"].values())]).all())
     res["finite"] = finite
+    shapes = {r["batch_img_shape"] == [batch_size, 256, 256, 3]
+              and len(r["batch_ms"]) == n_batches * r["epochs"]
+              for b in res["loader"].values() for r in b.values()}
     res["ok"] = (finite and tl["iterations"] == n_batches and "snapshot_0.pth.tar" in tl["snapshot"]
+                 and shapes == {True}
+                 and all(a["bitwise"] for a in res["eval_backends_agree"].values())
                  and len(tl["debug_images"]) == 1 and "ADDS_error" in tl["eval"]
                  and evals["ho3d"]["codalab_entries"] == [batch_size + 1] * 2
                  and all(res["train_loop_launches"][k] > 0
@@ -1709,9 +1872,64 @@ def data_phase(device, step_ms: float, batch_size: int = 22, n_batches: int = 3)
                  and all(e["launches"]["sdf_mlp"] > 0 for e in evals.values()))
     emit(res)
     if not res["ok"]:
-        raise AssertionError("data phase failed: a result is not finite, an output is missing "
-                             "or a kernel never ran")
+        raise AssertionError("data phase failed: a result is not finite, an output is missing, "
+                             "a kernel never ran, or the backends' eval samples differ")
     return res
+
+
+# ---- phase 7, then: the affine warp on the card ------------------------------------
+
+def warp_phase(device, batch: int = 22, src_hw=(480, 640), res: int = 256, seed: int = 11) -> dict:
+    """``ops/warp.py::affine_warp_image`` on ``batch`` u8 frames of
+    ``src_hw`` to ``res`` x ``res``: train crops (a spin drawn) for the first
+    half of the batch, eval crops (scale and shift) for the rest.  The card
+    against the CPU (nearest: differing pixels, expected 0; bilinear: max abs
+    error), the eval crops against PIL's NEAREST transform on the CPU, and
+    each mode's time on the card (CUDA events) and on the CPU (host clock)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from hoisdf_torch.data import transforms as T
+    from hoisdf_torch.ops.warp import affine_warp_image
+
+    rng = np.random.RandomState(seed)
+    h, w = src_hw
+    imgs = rng.randint(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    affs = np.stack([T.get_affine_transform(
+        rng.uniform([100, 80], [w - 100, h - 80]), rng.uniform(150, 400), [res, res],
+        rot=rng.uniform(-np.pi, np.pi) if i < batch // 2 else 0.0)[0]
+        for i in range(batch)]).astype(np.float32)
+    img, aff = torch.from_numpy(imgs), torch.from_numpy(affs)
+    img_d, aff_d = img.to(device), aff.to(device)
+    out = {"phase": "warp", "batch": batch, "src_hw": list(src_hw), "res": res, "dtype": "uint8"}
+    for mode in ("nearest", "bilinear"):
+        t0 = time.perf_counter()
+        cpu = affine_warp_image(img, aff, (res, res), mode=mode)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        card = affine_warp_image(img_d, aff_d, (res, res), mode=mode)
+        torch.cuda.synchronize(device)
+        card = card.cpu()
+        entry = {"card_ms": time_ms(lambda: affine_warp_image(img_d, aff_d, (res, res), mode=mode)),
+                 "cpu_ms": cpu_ms, "out_dtype": str(card.dtype).replace("torch.", "")}
+        if mode == "nearest":
+            entry["differing_pixels"] = int((card != cpu).any(-1).sum())
+            pil = np.stack([np.asarray(T.transform_img(Image.fromarray(imgs[i]), affs[i],
+                                                        [res, res]))
+                            for i in range(batch // 2, batch)])
+            entry["eval_crops_differing_from_pil"] = int((cpu[batch // 2:].numpy() != pil)
+                                                         .any(-1).sum())
+        else:
+            entry["max_abs_err"] = float((card - cpu).abs().max())
+            entry["finite"] = bool(torch.isfinite(card).all())
+        out[mode] = entry
+    out["ok"] = (out["nearest"]["differing_pixels"] == 0
+                 and out["nearest"]["eval_crops_differing_from_pil"] == 0
+                 and out["bilinear"]["finite"] and out["bilinear"]["max_abs_err"] <= 1e-3)
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError("the warp on the card disagrees with the CPU or with PIL")
+    return out
 
 
 def main() -> int:
@@ -1721,17 +1939,27 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
+    from concurrent.futures import ThreadPoolExecutor
+
     from hoisdf_torch.config import get_config
+    from hoisdf_torch.native.build import build as build_native
     from hoisdf_torch.ops.kernels import build
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = smi_line()
 
-    info = build.build()
+    # the image pipeline's g++ build runs beside the kernels' nvcc builds; a
+    # failed build of either fails the run
+    with ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(build_native)
+        info = build.build()
+        native = native_build.result()
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": info["seconds"], "built": info["built"],
           "card": torch.cuda.get_device_name(0), "nvidia_smi": smi, "ptxas": regs})
+    emit({"phase": "native", **{k: native[k] for k in (
+        "seconds", "built", "cxx", "headers", "codecs", "decode", "path")}})
 
     serve_batch = 22
     train_cfg = get_config("dexycb")  # the preset: f32 compute, train batch 22
@@ -1770,7 +1998,8 @@ def main() -> int:
         if setting == "ho3d":
             bwd_step_ho3d = bwd
         compare_train_step(cfg, 2, device)
-    data_phase(device, train_res["presampled"]["median_ms"])
+    data_phase(device, train_res["presampled"]["median_ms"], native)
+    warp_phase(device)
 
     evals, checks = {}, []
     for setting in EVAL_PRESETS:

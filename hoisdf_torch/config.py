@@ -111,9 +111,12 @@ class Config:
     # ---- data loading ------------------------------------------------------
     num_data_workers: int = 15
     data_worker_mode: str = "thread"  # or "process" (data/loader.py)
-    # The JAX package's native C++ image pipeline: "auto" takes the PIL path
-    # here (the port has no native library yet), "off" is the PIL path, and
-    # "on", which requires the library, is refused.
+    # The host image backend (data/image_io.py): "auto" takes the native C++
+    # pipeline (hoisdf_torch/native: decode, flip, crop, blur, jitter and
+    # f32 in one GIL-free call per sample) where its library builds, else
+    # PIL; "on" requires the library and raises if it does not build; "off"
+    # is the PIL path.  Eval samples are bit-identical between the two, train
+    # images within the blur's few LSB (tests/test_torch_data_native.py).
     native_pipeline: str = "auto"
 
     compute_dtype: str = "float32"  # "bfloat16" for serving
@@ -139,12 +142,7 @@ class Config:
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}")
         if self.data_worker_mode not in ("thread", "process"):
             raise ValueError(f"data_worker_mode {self.data_worker_mode!r}")
-        if self.native_pipeline == "on":
-            raise NotImplementedError(
-                "native_pipeline='on' requires the native C++ image pipeline, which the "
-                "port does not have yet (ROADMAP.md, Queue 1 item 2); 'auto' and 'off' "
-                "take the PIL path")
-        if self.native_pipeline not in ("auto", "off"):
+        if self.native_pipeline not in ("auto", "on", "off"):
             raise ValueError(f"native_pipeline {self.native_pipeline!r}")
         # The stock object cascade is quality-gated at K <= 200 only; past the
         # gate fall back to the shared cascade, as the JAX package does.

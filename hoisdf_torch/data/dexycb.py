@@ -1,4 +1,4 @@
-"""The DexYCB dataset (a numpy + PIL copy of ``hoisdf_tpu/data/dexycb.py``):
+"""The DexYCB dataset (a copy of ``hoisdf_tpu/data/dexycb.py``):
 annotations, seg masks, SDF samples and augmentation, on the original's
 on-disk layout (per-sample JSON annotation dict, label npz files, per-frame
 SDF ``.npy`` dumps with one ``sdf_index.npy`` per split), giving the flat
@@ -7,7 +7,9 @@ dict of numpy arrays that the JAX package's dataset gives.
 As in the JAX package, seg masks are decoded per sample, and randomness goes
 through a per-sample ``numpy.random.Generator`` keyed on ``(seed, epoch,
 index)``, so a sample is the same in any worker; the colour jitter factors
-come from the global ``random`` stream, as there.  Images take the PIL path.
+come from the global ``random`` stream, as there.  Images take the native
+C++ pipeline or the PIL path (``Config.native_pipeline``,
+``data/image_io.py``).
 """
 
 from __future__ import annotations
@@ -61,6 +63,8 @@ class DexYCBDataset:
         self.inp_res = cfg.input_img_shape[0]
         self.heatmap_res = cfg.output_hm_shape[1]
         self.seed = seed
+        # the native C++ image pipeline or PIL (Config.native_pipeline)
+        self.native = IIO.resolve_native(cfg.native_pipeline)
 
         # augmentation hyperparams (data/dexycb.py:31-39)
         self.max_rot = np.pi
@@ -173,7 +177,8 @@ class DexYCBDataset:
         rng = self._rng(idx, epoch)
         do_flip = info["mano_side"] == "left"
 
-        img = IIO.open_image(os.path.join(self.image_fast_path, info["color_file"]))
+        img = IIO.open_image(os.path.join(self.image_fast_path, info["color_file"]),
+                             self.native)
         K = np.zeros((3, 3))
         K[0, 0], K[1, 1] = info["intrinsics"]["fx"], info["intrinsics"]["fy"]
         K[0, 2], K[1, 2] = info["intrinsics"]["ppx"], info["intrinsics"]["ppy"]
@@ -381,7 +386,7 @@ class DexYCBDataset:
         return img, bbox_hand, bbox_obj, K, joints_uv, p2d, hand_seg, obj_seg
 
     def _warp_seg(self, seg, affinetrans) -> np.ndarray:
-        return IIO.warp_seg(seg, affinetrans, self.inp_res, self.heatmap_res)
+        return IIO.warp_seg(seg, affinetrans, self.inp_res, self.heatmap_res, self.native)
 
     def _assemble(self, cfg, img, mano_param, K, hand_seg, obj_seg, joints_uv,
                   joints_3d, sdf_points, bbox_hand, bbox_obj, obj_rot, obj_trans,

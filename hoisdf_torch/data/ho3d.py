@@ -1,4 +1,4 @@
-"""The HO3D dataset (a numpy + PIL copy of ``hoisdf_tpu/data/ho3d.py``):
+"""The HO3D dataset (a copy of ``hoisdf_tpu/data/ho3d.py``):
 train samples with full labels, the rendered extension of ho3d_render, and
 the evaluation split (image, box, intrinsics, root and the object-pose
 targets of ADD-S and MME; hand predictions go to the codalab JSON).
@@ -32,6 +32,7 @@ from typing import Dict, List
 import numpy as np
 from PIL import Image
 
+from hoisdf_torch import native as N
 from hoisdf_torch.config import Config
 from hoisdf_torch.data import image_io as IIO
 from hoisdf_torch.data import transforms as T
@@ -110,6 +111,8 @@ class HO3DDataset:
         self.heatmap_res = cfg.output_hm_shape[1]
         self.seed = seed
         self.hands_mean = mano_right.hands_mean
+        # the native C++ image pipeline or PIL (Config.native_pipeline)
+        self.native = IIO.resolve_native(cfg.native_pipeline)
 
         self.max_rot = np.pi
         self.scale_jittering = 0.2
@@ -200,7 +203,17 @@ class HO3DDataset:
     def _load_seg(self, path: str, thresh: int = 200):
         """Composite seg image -> (hand, obj) masks: hand in channel 0,
         object in channel 2, resized to the 640x480 annotation canvas and
-        thresholded at 200 (data/ho3d.py:141-165, 230-232)."""
+        thresholded at 200 (data/ho3d.py:141-165, 230-232).  The native path
+        decodes and resizes through the C library, with the same bits."""
+        if self.native:
+            kind = "jpeg" if path.lower().endswith((".jpg", ".jpeg")) else "png"
+            with open(path, "rb") as f:
+                arr = N.decode_image(f.read(), kind)
+            if arr is not None:
+                if arr.shape[:2] != (480, 640):
+                    arr = N.resize_nearest(arr, (480, 640))
+                return (IIO.SegMask((arr[..., 0] > thresh).astype(np.uint8)),
+                        IIO.SegMask((arr[..., 2] > thresh).astype(np.uint8)))
         with Image.open(path) as seg:
             if seg.size != (640, 480):
                 seg = seg.resize((640, 480), Image.NEAREST)
@@ -248,7 +261,7 @@ class HO3DDataset:
         cfg = self.cfg
         fname = sample["key"][len("render:"):]
         rdir = os.path.join(self.fast_data_dir, "render")
-        img = IIO.open_image(os.path.join(rdir, "rgb", f"{fname}.png"))
+        img = IIO.open_image(os.path.join(rdir, "rgb", f"{fname}.png"), self.native)
         with open(os.path.join(rdir, "anno", f"{fname}.json")) as f:
             anno = json.load(f)
         K = np.asarray(anno["camMat"], np.float64).reshape(3, 3)
@@ -301,7 +314,8 @@ class HO3DDataset:
         if sample["key"].startswith("render:"):
             return self._getitem_render(sample, rng)
         seq, frame = sample["key"].split("/")
-        img = IIO.open_image(os.path.join(self.root, "train", seq, "rgb", f"{frame}.png"))
+        img = IIO.open_image(os.path.join(self.root, "train", seq, "rgb", f"{frame}.png"),
+                             self.native)
         K = sample["K"].copy()
         joints_3d = sample["joints_3d"].copy()
         mano_param = sample["mano_param"].copy()
@@ -349,7 +363,8 @@ class HO3DDataset:
         at main/test.py:131-137)."""
         cfg = self.cfg
         seq, frame = self.set_list[idx].split("/")
-        img = IIO.open_image(os.path.join(self.root, "evaluation", seq, "rgb", f"{frame}.png"))
+        img = IIO.open_image(os.path.join(self.root, "evaluation", seq, "rgb", f"{frame}.png"),
+                             self.native)
         meta = load_meta_pkl(
             os.path.join(self.root, "evaluation", seq, "meta", f"{frame}.pkl")
         )

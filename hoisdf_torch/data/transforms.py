@@ -299,6 +299,17 @@ def apply_jitter_pil(img: Image.Image, ops: list) -> Image.Image:
     return out
 
 
+def jitter_ops_native(ops: list) -> list:
+    """Map drawn jitter ops to the native pipeline's (opcode, factor) pairs
+    (hue becomes the integer H-channel delta, as in :func:`_adjust_hue`)."""
+    from hoisdf_torch import native
+
+    codes = {"brightness": native.OP_BRIGHTNESS, "saturation": native.OP_SATURATION,
+             "contrast": native.OP_CONTRAST}
+    return [(native.OP_HUE, int(factor * 255)) if name == "hue" else (codes[name], factor)
+            for name, factor in ops]
+
+
 def color_jitter(
     img: Image.Image,
     brightness: float = 0,

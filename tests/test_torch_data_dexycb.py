@@ -1,8 +1,8 @@
 """The port's DexYCB dataset against the JAX package's, on an on-disk tree in
 the original's layout (``torch_data_fixtures.write_dexycb``): every sample
 of the train and the test split, in the full and the small ("cut") layout,
-over two epochs, equal bit for bit on the PIL path (the JAX package at
-``native_pipeline="off"``).  That covers the left-hand flips, the SDF draws,
+over two epochs, equal bit for bit on the PIL path (both packages at
+``native_pipeline="off"``; the native path is ``test_torch_data_native.py``).  That covers the left-hand flips, the SDF draws,
 the seg masks, the crop and the photometric jitter, whose factors come from
 the global ``random`` stream (seeded alike before each sample on both
 sides)."""
@@ -33,7 +33,7 @@ def trees(tmp_path_factory):
 
 
 def _pair(tree, mode, left=False, **over):
-    cfg = get_config("dexycb", **tree, **SMALL, **over)
+    cfg = get_config("dexycb", **tree, **SMALL, native_pipeline="off", **over)
     jcfg = jax_get_config("dexycb", **tree, **SMALL, native_pipeline="off", **over)
     mano_l = make_synthetic_mano(7, side="left") if left else None
     jmano_l = jax_make_synthetic_mano(7, side="left") if left else None
@@ -82,8 +82,14 @@ def test_train_crop_differs_across_epochs_and_eval_crop_does_not(trees):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_native_pipeline_on_is_refused(trees):
-    with pytest.raises(NotImplementedError, match="native_pipeline='on'"):
-        get_config("dexycb", native_pipeline="on", **trees[False])
+def test_native_pipeline_on_builds_and_yields_native_samples(trees):
+    """"on" builds the library and takes the native path ("auto" too, where
+    it builds); "off" is PIL; an unknown value raises."""
+    for mode, native in (("on", True), ("auto", True), ("off", False)):
+        ds = DexYCBDataset(get_config("dexycb", native_pipeline=mode, **trees[True], **SMALL),
+                           "test", make_synthetic_mano(0), seed=3)
+        assert ds.native is native, mode
+        img = ds.__getitem__(0)["img"]
+        assert img.shape == (64, 64, 3) and img.dtype == np.float32
     with pytest.raises(ValueError, match="native_pipeline"):
         get_config("dexycb", native_pipeline="fast")

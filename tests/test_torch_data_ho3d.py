@@ -2,9 +2,9 @@
 the original's layout (``torch_data_fixtures.write_ho3d``): train samples
 (the jpg seg composites, the meta pickles, the OpenGL -> OpenCV pose
 change), the rendered extension of ho3d_render and the evaluation split,
-equal bit for bit on the PIL path (the JAX package at
-``native_pipeline="off"``), with the global ``random`` stream seeded alike
-before each sample."""
+equal bit for bit on the PIL path (both packages at
+``native_pipeline="off"``; the native path is ``test_torch_data_native.py``),
+with the global ``random`` stream seeded alike before each sample."""
 
 import random
 
@@ -31,7 +31,8 @@ def tree(tmp_path_factory):
 
 def _pair(tree, setting, mode):
     over = dict(tree, **SMALL, add_render=setting == "ho3d_render")
-    return (P.HO3DDataset(get_config(setting, **over), mode, make_synthetic_mano(0), seed=2),
+    return (P.HO3DDataset(get_config(setting, native_pipeline="off", **over), mode,
+                          make_synthetic_mano(0), seed=2),
             J.HO3DDataset(jax_get_config(setting, native_pipeline="off", **over), mode,
                           jax_make_synthetic_mano(0), seed=2))
 

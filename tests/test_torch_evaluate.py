@@ -218,12 +218,12 @@ def test_main_loads_weights(source, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--cfg", "native_pipeline=on"], "native_pipeline='on'"),
+    (["--cfg", "native_pipeline=fast"], "native_pipeline 'fast'"),
     ([], "simple_object_models_dir"),
 ])
 def test_main_refuses_the_native_pipeline_and_a_split_without_templates(argv, match):
-    """A dataset's eval runs (``test_torch_data_mains.py``); what it refuses is
-    the native image pipeline, which the port does not have, and a split
-    without its object templates."""
-    with pytest.raises((SystemExit, NotImplementedError), match=match):
+    """A dataset's eval runs (``test_torch_data_mains.py``, on either image
+    backend); what it refuses is a ``native_pipeline`` that names no backend
+    and a split without its object templates."""
+    with pytest.raises((SystemExit, ValueError), match=match):
         PE.main(["--setting", "ho3d", "--cpu", *argv])

@@ -29,7 +29,8 @@ def test_port_imports_no_jax():
                    "models/initializers.py", "utils/checkpoint.py", "utils/logger.py",
                    "utils/timer.py", "evaluate.py", "metrics.py", "ops/ik.py",
                    "data/ho3d.py", "data/loader.py", "data/dexycb.py", "data/transforms.py",
-                   "data/image_io.py", "data/meshes.py", "predictor.py"):
+                   "data/image_io.py", "data/meshes.py", "predictor.py",
+                   "native/__init__.py", "native/build.py", "ops/warp.py"):
         assert f"hoisdf_torch/{module}" in names, module
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
