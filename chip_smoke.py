@@ -37,6 +37,34 @@ Phases, each printing one JSON line:
              (through the kernels) against CPU (plain versions), with drawn
              SDF decoder biases; one line each, with whether two card
              forwards are bitwise equal.
+   sampler - every sampler and field-query setting besides the default
+             ("full", "coarse2fine", "unmerged" field queries, the "paired"
+             cascade, the "nearest" gather in the probes), one line each
+             ("phase": "sampler", "check" naming the part).  nearest_kernel:
+             the gather's nearest mode against its plain twin on the card,
+             bitwise, bf16 and f32, on the dexycb (22 x 3,584 x 992) and
+             ho3d (3,968 channels) pyramids, a quarter of the points at
+             exact .5 texel positions; its ms, the plain twin's, stock
+             grid_sample(mode="nearest") x5 + cat and the byte bound (the
+             distinct texels the grid rounds to, the output and the grid).
+             gather_past_2_31: one chunk of the dense scan's gather on the
+             ho3d pyramid (22 x 32,768 x 3,968 bf16 values, past 2^31), the
+             images past 2^31 bitwise against the plain twin, bilinear and
+             nearest.  forward: card against CPU on each setting's
+             full-width forward (batch 2, f32, TF32 off), as the forward
+             phase; the selections must be one set, except in "full", where
+             the CPU takes the card's selected points (the dense scan's K-th
+             place has rivals within rounding; the two selections must be
+             one set or differ by near-ties).  eval_step: the dexycb eval step of each setting
+             ("hier" too), and ho3d's in "full" (a gather output past 2^31
+             values), at bf16, batch 22, u8 wire: device ms (torch.profiler)
+             and its top operators, host ms, kernel launches (counts zeroed
+             just before one step), peak memory, and no synchronizing call
+             under set_sync_debug_mode.  gate: the
+             dense-scan oracle's gate (ops/selection_quality.py) on the card
+             at 64^3 on the stress scene: the hier defaults pass (hand K =
+             600, object K = 200, overlap >= 0.99), ((4, 128), (2, 256))
+             fails.
 4. serve   - the main path: a dexycb Predictor at bf16, batch 22, answers
              40 requests on each of the u8 and the f32 wire, in turn; p50
              and p90 latency, frames/s, peak memory, kernel launches per step
@@ -110,7 +138,8 @@ Phases, each printing one JSON line:
              of ho3d_render run on the card.  Then eval_check: one batch of
              card outputs through the Evaluator on the card and on the CPU.
 9. kernels - one line listing every kernel with the numbers this run took
-             (the backward's `ho3d_*` fields from the ho3d train step,
+             (the gather's nearest mode in its `nearest_*` fields, from the
+             sampler phase; the backward's `ho3d_*` fields from the ho3d train step,
              every kernel's launches per preset's train phase, and the two
              serving kernels' launches in serve_closed, `launches_server`).
 
@@ -634,15 +663,104 @@ def _by_lattice_id(v, ids):
     return torch.gather(v, axis, idx)
 
 
-def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e-4):
+# |sdf| within which two lattice points tie for a place in a selection when
+# the card and the CPU score them (the f32 SDF MLP's card-CPU gap is ~4e-7)
+SELECTION_TIE = 1e-5
+
+
+@contextlib.contextmanager
+def recorded_selections(impose=None):
+    """Record every field-guided sampler call of the model (the three
+    samplers of ``models/hoisdf.py`` and the paired cascade's), in call
+    order: its selected points.  With ``impose`` (another run's recorded
+    points, in call order) each call returns those points instead, their sdf
+    from the call's own ``sdf_fn``, and records the scores of both sets
+    under that ``sdf_fn`` (|sdf|, +inf outside the bbox)."""
+    import torch
+
+    from hoisdf_torch.models import experimental, hoisdf
+    from hoisdf_torch.ops.point_sampling import _in_bbox
+
+    record = []
+
+    def wrap(fn):
+        def sampler(sdf_fn, center, cam_intr, bbox, *, sdf_scale, clamp, **kw):
+            pts, sdf = fn(sdf_fn, center, cam_intr, bbox, sdf_scale=sdf_scale, clamp=clamp,
+                          **kw)
+            entry = {"points": pts.cpu()}
+            if impose is not None:
+                def scores(p):
+                    raw = sdf_fn(p)
+                    inside = _in_bbox(p, center, cam_intr, bbox, sdf_scale)
+                    return raw, torch.where(inside, raw.abs(), torch.full_like(raw, float("inf")))
+
+                entry["own"] = scores(pts)[1].cpu()
+                pts = impose[len(record)].to(pts.device)
+                raw, imposed = scores(pts)
+                entry["imposed"] = imposed.cpu()
+                sdf = torch.clamp(raw, -clamp, clamp)[..., None]
+            record.append(entry)
+            return pts, sdf
+        return sampler
+
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (hoisdf, "sdf_guided_sample"), (hoisdf, "sdf_guided_sample_coarse2fine"),
+        (hoisdf, "sdf_guided_sample_hierarchical"),
+        (experimental, "sdf_guided_sample_hierarchical"))]
+    for m, n, f in saved:
+        setattr(m, n, wrap(f))
+    try:
+        yield record
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def selection_agreement(card, cpu, bins_n: int):
+    """The card's selections against the CPU's own (``recorded_selections``
+    records of one forward each, the CPU's with the card's imposed): the
+    least share of common lattice points over calls and images, and the
+    largest gap between the sorted CPU scores of the two selections (0 when
+    they are one set; at most ``SELECTION_TIE`` when they differ by
+    near-ties), with the differing points' scores."""
+    import torch
+
+    overlap, gap, differing = 1.0, 0.0, []
+    for d, c in zip(card, cpu):
+        ids_d, ids_c = _lattice_ids(d["points"], bins_n), _lattice_ids(c["points"], bins_n)
+        for b in range(ids_d.shape[0]):
+            sd, sc = set(ids_d[b].tolist()), set(ids_c[b].tolist())
+            overlap = min(overlap, len(sd & sc) / len(sc))
+            own, imp = torch.sort(c["own"][b]).values, torch.sort(c["imposed"][b]).values
+            same = (own == imp) | (torch.isinf(own) & torch.isinf(imp))
+            gap = max(gap, float(torch.where(same, 0.0, (own - imp).abs()).max()))
+            if sd != sc and len(differing) < 4:
+                differing.append({"image": b, "kth_score": float(own[-1]),
+                                  "card_only": sorted(sd - sc)[:3], "cpu_only": sorted(sc - sd)[:3],
+                                  "card_only_scores": [float(c["imposed"][b][i]) for i, k in
+                                                       enumerate(ids_d[b].tolist())
+                                                       if k not in sc][:3]})
+    return overlap, gap, differing
+
+
+def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e-4,
+                    phase: str = "forward", sampler: str = "hier", eval_step: bool = True,
+                    impose_selection: bool = False):
     """Eval forward on ``device`` (kernels) and on the CPU (plain versions)
-    from the same seeded weights and inputs, both f32.
+    from the same seeded weights and inputs, both f32; with ``eval_step``
+    the eval step's outputs too.
 
     The selected lattice points must agree as sets.  Per-point outputs are
     compared after sorting by lattice id: the order inside the selection
     follows |sdf|, whose near-ties can order differently when sums are taken
     in another order.  Errors are scaled by max(1, max |cpu value|).  Two
-    forwards on the card must be bitwise equal."""
+    forwards on the card must be bitwise equal.
+
+    With ``impose_selection`` (the dense scan ranks every lattice point, so
+    its K-th place has close rivals) the CPU's forward takes the card's
+    selected points (``recorded_selections``): the two selections must be
+    one set or differ by near-ties only (``selection_agreement``), and every
+    output is compared on the card's points."""
     import torch
 
     from hoisdf_torch.data.synthetic import synthetic_batch
@@ -652,18 +770,22 @@ def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e
 
     inputs = synthetic_batch(cfg, batch_size, seed=seed)
     mano = ManoBuffers.from_model(make_synthetic_mano(0))
-    runs, repeat_equal, cpu_s = {}, None, 0.0
+    runs, repeat_equal, cpu_s, records = {}, None, 0.0, {}
     for dev in (device, "cpu"):
         model = build_biased_model(cfg, seed)
         step = make_eval_step(cfg, model, mano, supervise_sdf=False, device=dev)
         t0 = time.perf_counter()
         with torch.inference_mode():
             batch = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
-            raw = model(batch, supervise_sdf=False)
+            impose = ([e["points"] for e in records[device]]
+                      if impose_selection and dev == "cpu" else None)
+            with (recorded_selections(impose) if impose_selection
+                  else contextlib.nullcontext([])) as records[dev]:
+                raw = model(batch, supervise_sdf=False)
             if dev != "cpu":  # is the card's forward bitwise repeatable?
                 again = model(batch, supervise_sdf=False)
                 repeat_equal = all(torch.equal(raw[k], again[k]) for k in raw)
-        preds = step(inputs)
+        preds = step(inputs) if eval_step else {}
         runs[dev] = ({k: v.cpu() for k, v in raw.items()},
                      {k: v.cpu() for k, v in preds.items()})
         cpu_s = time.perf_counter() - t0
@@ -694,18 +816,282 @@ def compare_forward(cfg, batch_size: int, device, seed: int = 0, tol: float = 1e
             finite = finite and bool(torch.isfinite(dv).all())
             errs[f"{name}.{key}"] = (dv - cv).abs().max().item() / max(cv.abs().max().item(), 1.0)
     worst = max(errs.values())
-    res = {"phase": "forward", "setting": cfg.setting, "batch": batch_size, "dtype": "float32",
+    res = {"phase": phase, "check": "forward", "setting": cfg.setting, "sampler": sampler,
+           "batch": batch_size, "dtype": "float32",
            "overlap_hand": overlap["hand"], "overlap_obj": overlap["obj"],
            "max_scaled_err": worst, "worst_key": max(errs, key=errs.get), "tol": tol,
            "card_repeat_bitwise": repeat_equal, "cpu_seconds": cpu_s,
            "finite": finite, "errors": errs}
-    res["ok"] = (finite and overlap["hand"] == 1.0 and overlap["obj"] == 1.0 and worst <= tol
-                 and repeat_equal)
+    same_points = overlap["hand"] == 1.0 and overlap["obj"] == 1.0
+    if impose_selection:
+        sel, gap, differing = selection_agreement(records[device], records["cpu"], cfg.bins_n)
+        res.update({"selection_imposed": True, "selection_overlap": sel,
+                    "selection_tie_gap": gap, "selection_tie": SELECTION_TIE,
+                    "selection_differing": differing})
+        same_points = same_points and (sel == 1.0 or gap <= SELECTION_TIE)
+    res["ok"] = finite and same_points and worst <= tol and repeat_equal
     emit(res)
     if not res["ok"]:
-        raise AssertionError(f"card and CPU disagree on the {cfg.setting} eval forward, or two "
-                             "card forwards differ")
+        raise AssertionError(f"card and CPU disagree on the {cfg.setting} eval forward "
+                             f"({sampler} sampler), or two card forwards differ")
     return res
+
+
+# ---- phase 3b: the sampler settings ---------------------------------------------
+
+# Every sampler and field-query setting besides the default "hier" cascade
+# with merged queries, as Config overrides of the dexycb preset.  The paired
+# cascade shares hier_levels, so it runs with hier_levels_obj=None.
+SAMPLER_SETTINGS = {
+    "full": dict(sdf_infer_mode="full"),
+    "coarse2fine": dict(sdf_infer_mode="coarse2fine"),
+    "unmerged": dict(merged_field_queries=False),
+    "paired": dict(paired_sdf_infer=True, hier_levels_obj=None),
+    "nearest": dict(infer_gather_nearest=True),
+}
+# The settings whose card-vs-CPU forward takes the card's selection on the
+# CPU: the dense scan ranks every lattice point, so its K-th place has close
+# rivals.  The cascades' selections must be one set.
+IMPOSED_SELECTION = ("full",)
+
+
+def _half_texel_grid(sizes, batch: int, points: int, seed: int):
+    """A [batch, points, 2] f32 grid: a quarter of the points at exact .5
+    texel positions of one of the levels of edge ``sizes`` (x and y computed
+    as the gather computes them, in f32), where rounding half to even
+    decides, the rest uniform over the image and a little beyond."""
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.ops.kernels.gather_lerp import half_texel_coords
+
+    rng = np.random.RandomState(seed)
+    half = half_texel_coords(sizes)
+    grid = rng.uniform(-1.1, 1.1, size=(batch, points, 2)).astype(np.float32)
+    n = points // 4
+    grid[:, :n] = rng.choice(half, size=(batch, n, 2))
+    return torch.from_numpy(grid)
+
+
+def _nearest_map_bytes(grid, maps) -> int:
+    """Bytes of the maps that the nearest mode must read for ``grid``: each
+    distinct texel that its points round to, per image and level, once."""
+    import torch
+
+    from hoisdf_torch.ops.kernels.gather_lerp import nearest_index
+
+    total = 0
+    for m in maps:
+        b, h, w, c = m.shape
+        idx = nearest_index(grid, h, w) + torch.arange(b, device=grid.device)[:, None] * (h * w)
+        total += torch.unique(idx).numel() * c * m.element_size()
+    return total
+
+
+def check_gather_nearest(device, batch: int, points: int, pyramid, pyramid_name: str,
+                         seed: int = 5):
+    """The gather's nearest mode against its plain twin on the card, bitwise,
+    bf16 and f32, timed against its byte bound (each distinct texel that the
+    grid rounds to read once per image and level, the output written once: a
+    copy does no arithmetic), the plain twin and
+    stock ``grid_sample(mode="nearest")`` per level + concat."""
+    import torch
+    import torch.nn.functional as F
+
+    from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp, gather_nearest_plain
+
+    grid = _half_texel_grid([s for _, s, _ in pyramid], batch, points, seed).to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    maps32 = [torch.randn(batch, s, s, c, generator=g, device=device) for _, s, c in pyramid]
+    res = {"phase": "sampler", "check": "nearest_kernel", "kernel": "gather_lerp",
+           "mode": "nearest", "pyramid": pyramid_name, "batch": batch, "points": points,
+           "channels": sum(c for _, _, c in pyramid)}
+    ok = True
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        maps = [m.to(dtype) for m in maps32]
+        got = gather_lerp(grid, maps, nearest=True)
+        torch.cuda.synchronize()
+        want = gather_nearest_plain(grid, maps)
+        bitwise = bool(torch.equal(got, want))
+        err = (got.float() - want.float()).abs().max().item()
+        ok = ok and bitwise and bool(torch.isfinite(got).all())
+        size = got.element_size()
+        nbytes = got.numel() * size + _nearest_map_bytes(grid, maps) + grid.numel() * 4
+        b_ms, b_by = bound(0.0, H100_F32_FLOPS, nbytes)
+        del got, want
+        grid4 = grid[:, None].to(dtype)
+
+        def library():  # stock grid_sample per level + concat
+            return torch.cat([F.grid_sample(
+                m.permute(0, 3, 1, 2), grid4, mode="nearest", padding_mode="border",
+                align_corners=True) for m in maps], 1)
+
+        res.update({f"{name}_max_abs_err": err, f"{name}_bitwise_equal": bitwise,
+                    f"{name}_ms": time_ms(lambda: gather_lerp(grid, maps, nearest=True)),
+                    f"{name}_plain_ms": time_ms(lambda: gather_nearest_plain(grid, maps),
+                                                iters=3),
+                    f"{name}_library_ms": time_ms(library, iters=3),
+                    f"{name}_bound_ms": b_ms, f"{name}_bound_by": b_by, f"{name}_bytes": nbytes})
+        if pyramid_name == "dexycb" and dtype == torch.bfloat16:  # the bilinear mode beside it
+            res["bf16_bilinear_ms"] = time_ms(lambda: gather_lerp(grid, maps))
+        del maps
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError(f"the gather's nearest mode differs from its plain twin: {res}")
+    return res
+
+
+def check_gather_past_2_31(device, batch: int, points: int = 32768, seed: int = 7):
+    """One chunk of the dense scan's gather on DecoderBig's pyramid, as the
+    ho3d "full" eval step launches it: ``batch`` x ``points`` (the default
+    sdf_infer_chunk) x 3,968 bf16 values, past 2^31 at batch 22.  The images
+    whose output rows reach past 2^31 values are held bitwise against the
+    plain twin on those images alone, in both modes of the kernel."""
+    import torch
+
+    from hoisdf_torch.ops.kernels.gather_lerp import (gather_lerp, gather_lerp_plain,
+                                                      gather_nearest_plain)
+
+    c_total = sum(c for _, _, c in PYRAMID_HO3D)
+    first = 2**31 // (points * c_total)  # the image whose rows cross 2^31 values
+    grid = _half_texel_grid([s for _, s, _ in PYRAMID_HO3D], batch, points, seed).to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    maps = [torch.randn(batch, s, s, c, generator=g, device=device).to(torch.bfloat16)
+            for _, s, c in PYRAMID_HO3D]
+    res = {"phase": "sampler", "check": "gather_past_2_31", "kernel": "gather_lerp",
+           "pyramid": "ho3d", "dtype": "bf16", "batch": batch, "points": points,
+           "channels": c_total, "output_values": batch * points * c_total,
+           "checked_images": [first, batch], "checked_from_value": first * points * c_total}
+    ok = batch * points * c_total > 2**31
+    for mode, plain in (("bilinear", gather_lerp_plain), ("nearest", gather_nearest_plain)):
+        got = gather_lerp(grid, maps, nearest=mode == "nearest")[first:]
+        want = plain(grid[first:].contiguous(), [m[first:].contiguous() for m in maps])
+        res[f"{mode}_bitwise_equal"] = bool(torch.equal(got, want))
+        res[f"{mode}_max_abs_err"] = (got.float() - want.float()).abs().max().item()
+        ok = ok and res[f"{mode}_bitwise_equal"]
+        del got, want
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError(f"the gather past 2^31 output values differs from its plain twin "
+                             f"(or the case does not reach 2^31): {res}")
+    return res
+
+
+def sampler_eval_step(name: str, over: dict, device, batch_size: int,
+                      setting: str = "dexycb"):
+    """The ``setting`` preset's eval step at full width, bf16, batch
+    ``batch_size``, u8 wire, in one sampler setting: a warmed step under ``set_sync_debug_mode``
+    (inputs already on the card, so the gate sees the step alone), its device
+    ms (torch.profiler) and host ms (median of three, around a synchronize),
+    then one step with the kernel counts zeroed just before and read just
+    after, and its peak memory."""
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.config import get_config
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.ops import wire
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+    from hoisdf_torch.train import make_eval_step
+
+    cfg = get_config(setting, compute_dtype="bfloat16", transfer_dtype="uint8", **over)
+    mano = ManoBuffers.from_model(make_synthetic_mano(0))
+    step = make_eval_step(cfg, build_biased_model(cfg), mano, device=device)
+    inputs = _eval_batches(cfg, 1, batch_size)[0][0]
+    wire0 = {k: torch.from_numpy(v).to(device) for k, v in
+             wire.encode_inputs({k: v for k, v in inputs.items() if k != "obj_cls"}).items()}
+    step(wire0)  # warmup
+    sites, error, _ = sync_gate(lambda: step(wire0))
+    torch.cuda.synchronize(device)
+    prof = device_breakdown(lambda: step(wire0), 1)
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        step(wire0)
+        torch.cuda.synchronize(device)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    out = step(wire0)
+    torch.cuda.synchronize(device)
+    counts = dict(launch_counts)
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+    nearest = cfg.infer_gather_nearest
+    res = {"phase": "sampler", "check": "eval_step", "setting": setting, "sampler": name,
+           "overrides": over, "batch": batch_size, "compute_dtype": cfg.compute_dtype, "wire": cfg.transfer_dtype,
+           "step_device_ms": prof["device_ms_per_step"],
+           "step_device_launches": prof["launches_per_step"], "step_device_by_group":
+           prof["by_group"], "step_top_ops": prof["top_ops"][:8],
+           "step_host_ms": float(np.median(host)), "step_host_ms_runs": host,
+           "launches": counts, "peak_mem_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+           "sync_sites": sites, "sync_error": error, "finite": finite, "tf32": tf32_on()}
+    res["ok"] = (finite and error is None and not sites and not res["tf32"]
+                 and counts["sdf_mlp"] > 0 and counts["gather_lerp"] > 0
+                 and (counts["gather_lerp_nearest"] > 0) == nearest)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"the {name} eval step failed: a synchronizing call, an output "
+                             "not finite, TF32 on, or a kernel of its path never ran: "
+                             f"{sites} {error} {counts}")
+    return res
+
+
+def sampler_gate(device):
+    """The dense-scan oracle's gate on the card at the production scale
+    (64^3 lattice, stress scene of ops/selection_quality.py): the hier
+    defaults pass it, the hand at K = 600 and the object at K = 200, with
+    overlap >= 0.99; the cheaper ((4, 128), (2, 256)) fails it."""
+    from hoisdf_torch.config import Config
+    from hoisdf_torch.ops.selection_quality import gate, selection_quality, stress_geometry
+
+    field, center, cam, bbox = stress_geometry(batch=2, seed=3, device=device)
+    cases = {"hand": (600, Config().hier_levels), "obj": (200, Config().hier_levels_obj),
+             "hand_bad_levels": (600, ((4, 128), (2, 256)))}
+    res = {"phase": "sampler", "check": "gate", "bins_n": 64, "scene": "stress_geometry seed 3"}
+    t0 = time.perf_counter()
+    for name, (k, levels) in cases.items():
+        rep = selection_quality(field, center, cam, bbox, sdf_scale=3.1, num_points=k,
+                                bins_n=64, levels=levels)
+        res[name] = {"k": k, "levels": levels, "gate": gate(rep),
+                     **{key: v.tolist() for key, v in rep.items()}}
+    res["seconds"] = time.perf_counter() - t0
+    res["ok"] = (res["hand"]["gate"] and res["obj"]["gate"] and not res["hand_bad_levels"]["gate"]
+                 and min(res["hand"]["overlap_at_k"] + res["obj"]["overlap_at_k"]) >= 0.99)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"the dense-scan gate failed on the card: {res}")
+    return res
+
+
+def sampler_phase(device, batch_size: int):
+    """The sampler settings: the gather's nearest mode on both pyramids, the
+    card against the CPU on each setting's f32 forward (batch 2), the eval
+    step of each (the default "hier" too), and the dense-scan gate.  ->
+    (nearest kernel lines by pyramid, eval-step lines by setting)."""
+    from hoisdf_torch.config import get_config
+
+    t0 = time.perf_counter()
+    nearest = {name: check_gather_nearest(device, batch_size, 3584, pyr, name)
+               for name, pyr in (("dexycb", PYRAMID), ("ho3d", PYRAMID_HO3D))}
+    check_gather_past_2_31(device, batch_size)
+    for name, over in SAMPLER_SETTINGS.items():
+        compare_forward(get_config("dexycb", compute_dtype="float32", **over), 2, device,
+                        phase="sampler", sampler=name, eval_step=False,
+                        impose_selection=name in IMPOSED_SELECTION)
+    steps = {name: sampler_eval_step(name, over, device, batch_size)
+             for name, over in {"hier": {}, **SAMPLER_SETTINGS}.items()}
+    # the dense scan on DecoderBig's pyramid: a chunk's gather output is
+    # 720,896 x 3,968 values, past 2^31 (its offsets: check_gather_past_2_31)
+    steps["full_ho3d"] = sampler_eval_step("full", SAMPLER_SETTINGS["full"], device,
+                                           batch_size, setting="ho3d")
+    sampler_gate(device)
+    print(f"chip_smoke: sampler phase {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    return nearest, steps
 
 
 # ---- phase 8: evaluation ---------------------------------------------------------
@@ -1003,22 +1389,23 @@ def serve(preds, frames, cfg, batch_size: int, requests: int, device):
     return res
 
 
-def sync_check(predictor, frames):
-    """One warmed predict_async under ``set_sync_debug_mode``: first "warn",
+def sync_gate(fn):
+    """Call ``fn`` twice under ``set_sync_debug_mode``: first "warn",
     recording where each synchronizing call was made (for the line), then
-    "error", the gate.  The mode is restored after each.  -> (sites, error)."""
+    "error", the gate.  The mode is restored after each.  -> (sites, error,
+    the calls' results)."""
     import warnings
 
     import torch
 
     prev = torch.cuda.get_sync_debug_mode()
-    handles, sites, error = [], [], None
+    results, sites, error = [], [], None
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            handles.append(predictor.predict_async(frames))
+            results.append(fn())
         finally:
             torch.cuda.set_sync_debug_mode(prev)
     # torch's own notice that the mode is a prototype is not a sync
@@ -1027,11 +1414,17 @@ def sync_check(predictor, frames):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        handles.append(predictor.predict_async(frames))
+        results.append(fn())
     except RuntimeError as exc:
         error = str(exc)[:300]
     finally:
         torch.cuda.set_sync_debug_mode(prev)
+    return sites, error, results
+
+
+def sync_check(predictor, frames):
+    """One warmed predict_async under :func:`sync_gate`.  -> (sites, error)."""
+    sites, error, handles = sync_gate(lambda: predictor.predict_async(frames))
     for h in handles:
         predictor.materialize(*h)
     return sites, error
@@ -1972,6 +2365,7 @@ def main() -> int:
 
     for setting in ("dexycb", "ho3d", "ho3d_render"):
         compare_forward(get_config(setting, compute_dtype="float32"), 2, device)
+    nearest, sampler_steps = sampler_phase(device, serve_batch)
 
     serve_cfg = get_config("dexycb", compute_dtype="bfloat16")
     predictors = serving_predictors(serve_cfg, serve_batch, device)
@@ -2037,6 +2431,15 @@ def main() -> int:
          "library_ms": gather_timed["library_ms"],
          "launches_eval": {s: r["launches"]["gather_lerp"] for s, r in evals.items()},
          **{f"ho3d_{k}": gather_ho3d[k] for k in gather_ho3d
+            if k.startswith(("bf16_", "f32_"))},
+         # the nearest mode: dexycb bf16 first, as the bilinear figures above
+         "nearest_launches": sampler_steps["nearest"]["launches"]["gather_lerp_nearest"],
+         "nearest_launches_sampler": {s: r["launches"]["gather_lerp_nearest"]
+                                      for s, r in sampler_steps.items()},
+         **{f"nearest_{k[5:]}": nearest["dexycb"][k] for k in (
+             "bf16_ms", "bf16_plain_ms", "bf16_bound_ms", "bf16_bound_by", "bf16_library_ms",
+             "bf16_max_abs_err")},
+         **{f"nearest_{p}_{k}": r[k] for p, r in nearest.items() for k in r
             if k.startswith(("bf16_", "f32_"))}},
         {"name": "gather_lerp_bwd", "route": "cuda",
          "source": "hoisdf_torch/csrc/gather_lerp.cu", "replaces": GATHER_BWD_TPU,

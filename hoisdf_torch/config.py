@@ -1,10 +1,13 @@
 """Configuration of the PyTorch port: the four presets of the JAX package.
 
-A copy of ``hoisdf_tpu.config`` trimmed to the fields the eval forward, the
-evaluator, the train step and the data pipeline read: the port imports
-nothing of the JAX package.  Field names and defaults are the JAX package's,
-so the same overrides configure both; a field the port does not have (an
-option of a path not ported yet) is refused by name.
+A copy of ``hoisdf_tpu.config`` trimmed to the fields the eval forward (with
+every sampler and field-query setting), the evaluator, the train step and
+the data pipeline read: the port imports nothing of the JAX package.  Field
+names and defaults are the JAX package's, so the same overrides configure
+both.  A field the port does not have (a TPU compiler knob such as
+``fused_sdf_infer`` or ``gather_chunked_max_table``, or an option of a path
+not ported yet) is refused as unknown; ``approx_selection_topk=True``, TPU
+hardware's approximate top-k, is refused by name.
 """
 
 from __future__ import annotations
@@ -57,10 +60,30 @@ class Config:
     point_feat_size: int = 33  # 30-d NeRF enc + xyz
     classifier_branch: bool = False
     clamping_distance: float = 0.15
+    # The field-guided sampler (ops/point_sampling.py): "hier" the cell
+    # cascade of hier_levels, "coarse2fine" coarse_bins^3 cell probes then
+    # every lattice point of the coarse_keep_cells best cells, "full" the
+    # dense bins_n^3 scan in sdf_infer_chunk lattice points a step (the
+    # oracle that ops/selection_quality.py gates the cascade against).
+    sdf_infer_mode: str = "hier"
+    sdf_infer_chunk: int = 32768
+    coarse_bins: int = 16
+    coarse_keep_cells: int = 512
     # (cell_factor, keep) cascade of the field-guided sampler
     hier_levels: tuple = ((8, 128), (4, 224), (2, 448))
     # object-field cascade; None = share hier_levels (gated at K <= 200)
     hier_levels_obj: tuple | None = ((8, 104), (4, 184), (2, 368))
+    # nearest-texel pyramid gather in the sampler's probes only (tokens and
+    # cross queries stay bilinear)
+    infer_gather_nearest: bool = False
+    # hand and object cascades folded into one grouped cascade
+    # (models/experimental.py; "hier" only, shares hier_levels)
+    paired_sdf_infer: bool = False
+    # token features and cross-field queries off one [B, Ph+Po] gather; False
+    # runs four gathers and the cross queries through sdf_forward
+    merged_field_queries: bool = True
+    # the JAX package's TPU approx_max_k in the pruning stages: refused
+    approx_selection_topk: bool = False
 
     # ---- model -------------------------------------------------------------
     resnet_type: int = 50
@@ -144,6 +167,11 @@ class Config:
             raise ValueError(f"data_worker_mode {self.data_worker_mode!r}")
         if self.native_pipeline not in ("auto", "on", "off"):
             raise ValueError(f"native_pipeline {self.native_pipeline!r}")
+        if self.sdf_infer_mode not in ("hier", "coarse2fine", "full"):
+            raise ValueError(f"sdf_infer_mode {self.sdf_infer_mode!r}")
+        if self.approx_selection_topk:
+            raise ValueError("approx_selection_topk=True is lax.approx_max_k, TPU hardware; "
+                             "the port selects exactly (leave it False)")
         # The stock object cascade is quality-gated at K <= 200 only; past the
         # gate fall back to the shared cascade, as the JAX package does.
         stock = type(self).__dataclass_fields__["hier_levels_obj"].default

@@ -41,6 +41,14 @@
 //     the result is bit-identical to the plain PyTorch version.  Maps whose
 //     channel counts are not multiples of the vector width take the same
 //     kernel with one channel per lane.
+//
+// Nearest mode (a compile-time flag of the same kernel): the counterpart of
+// hoisdf_tpu/ops/grid_sample.py::grid_sample_nearest, which the JAX package
+// uses in the sampler's probes when cfg.infer_gather_nearest is set.  The
+// clipped coordinate is computed as above and rounded half to even
+// (jnp.round; __float2int_rn, not roundf), and the point copies one texel
+// per level instead of lerping four: a quarter of the corner bytes, the same
+// point loop, level table, staging and output layout.  Forward only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,7 +101,7 @@ __device__ __forceinline__ float lerp2(float a, float b, float w) {
 }
 
 // Block (i, b) serves points [i * ppb, (i + 1) * ppb) of image b.
-template <typename T, int VEC>
+template <typename T, int VEC, bool NEAREST>
 __global__ void __launch_bounds__(kThreads, 1)
 gather_lerp_kernel(const float* __restrict__ grid, int p, int ppb, const Levels L,
                    T* __restrict__ out) {
@@ -144,12 +152,18 @@ gather_lerp_kernel(const float* __restrict__ grid, int p, int ppb, const Levels 
       const float wm1 = (float)(lv.w - 1), hm1 = (float)(lv.h - 1);
       const float x = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(gx, 1.f), 0.5f), wm1), 0.f), wm1);
       const float y = fminf(fmaxf(__fmul_rn(__fmul_rn(__fadd_rn(gy, 1.f), 0.5f), hm1), 0.f), hm1);
+      const int c = (v - lv.v_begin) * VEC;
+      const T* base = base_s[l] + c;
+      Vec<T, VEC>* dst = reinterpret_cast<Vec<T, VEC>*>(orow + lv.c_off + c);
+      if constexpr (NEAREST) {
+        const int xi = __float2int_rn(x), yi = __float2int_rn(y);  // half to even
+        *dst = *reinterpret_cast<const Vec<T, VEC>*>(base + (yi * lv.w + xi) * lv.c);
+        continue;
+      }
       const float x0f = floorf(x), y0f = floorf(y);
       const int x0 = (int)x0f, y0 = (int)y0f;
       const int x1 = min(x0 + 1, lv.w - 1), y1 = min(y0 + 1, lv.h - 1);
       const float wx = __fsub_rn(x, x0f), wy = __fsub_rn(y, y0f);
-      const int c = (v - lv.v_begin) * VEC;
-      const T* base = base_s[l] + c;
       const Vec<T, VEC> f00 = *reinterpret_cast<const Vec<T, VEC>*>(base + (y0 * lv.w + x0) * lv.c);
       const Vec<T, VEC> f01 = *reinterpret_cast<const Vec<T, VEC>*>(base + (y0 * lv.w + x1) * lv.c);
       const Vec<T, VEC> f10 = *reinterpret_cast<const Vec<T, VEC>*>(base + (y1 * lv.w + x0) * lv.c);
@@ -161,7 +175,7 @@ gather_lerp_kernel(const float* __restrict__ grid, int p, int ppb, const Levels 
         const float bot = lerp2(to_f(f10.v[i]), to_f(f11.v[i]), wx);
         res.v[i] = from_f<T>(lerp2(top, bot, wy));
       }
-      *reinterpret_cast<Vec<T, VEC>*>(orow + lv.c_off + c) = res;
+      *dst = res;
     }
   }
 }
@@ -476,8 +490,20 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
+template <typename T, int VEC>
+cudaError_t launch_kernel(bool nearest, dim3 blocks, size_t smem, cudaStream_t stream,
+                          const float* grid, int p, int ppb, const Levels& L, T* out) {
+  auto kern = nearest ? gather_lerp_kernel<T, VEC, true> : gather_lerp_kernel<T, VEC, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxStaged);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, kThreads, smem, stream>>>(grid, p, ppb, L, out);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch(const float* grid, int b, int p, Levels L, void* out, cudaStream_t stream) {
+cudaError_t launch(const float* grid, int b, int p, Levels L, bool nearest, void* out,
+                   cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   int sms = 0;
   cudaError_t err = sm_count(&sms);
@@ -496,14 +522,16 @@ cudaError_t launch(const float* grid, int b, int p, Levels L, void* out, cudaStr
 
   // One wave of blocks: each image's points over just enough blocks to give
   // every SM one.  Coarsest level first, a map is staged when it fits and the
-  // block's points would otherwise read more than the map (4 corners each).
+  // block's points would otherwise read more than the map (4 corners each, 1
+  // texel in the nearest mode).
+  const size_t taps = nearest ? 1 : 4;
   const int blocks_per_image = (sms + b - 1) / b;
   int ppb = (p + blocks_per_image - 1) / blocks_per_image;
   size_t smem = 0;
   for (int l = L.n - 1; l >= 0; --l) {
     const size_t bytes = (size_t)L.lv[l].h * L.lv[l].w * L.lv[l].c * sizeof(T);
     if (bytes % 16 == 0 && reinterpret_cast<uintptr_t>(L.lv[l].ptr) % 16 == 0 &&
-        smem + bytes <= kMaxStaged && 4 * (size_t)ppb >= (size_t)L.lv[l].h * L.lv[l].w) {
+        smem + bytes <= kMaxStaged && taps * ppb >= (size_t)L.lv[l].h * L.lv[l].w) {
       L.lv[l].staged = (int)smem;
       smem += bytes;
     }
@@ -511,28 +539,19 @@ cudaError_t launch(const float* grid, int b, int p, Levels L, void* out, cudaStr
   if (smem == 0) ppb = min(ppb, 2 * kWarps);  // nothing to share: smaller blocks balance better
   const dim3 blocks((p + ppb - 1) / ppb, b);
   T* o = static_cast<T*>(out);
-  if (vec_ok) {
-    auto kern = gather_lerp_kernel<T, kVec>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxStaged);
-    if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, stream>>>(grid, p, ppb, L, o);
-  } else {
-    auto kern = gather_lerp_kernel<T, 1>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxStaged);
-    if (err != cudaSuccess) return err;
-    kern<<<blocks, kThreads, smem, stream>>>(grid, p, ppb, L, o);
-  }
-  return cudaGetLastError();
+  if (vec_ok) return launch_kernel<T, kVec>(nearest, blocks, smem, stream, grid, p, ppb, L, o);
+  return launch_kernel<T, 1>(nearest, blocks, smem, stream, grid, p, ppb, L, o);
 }
 
 }  // namespace
 
 // grid: [b, p, 2] f32; ptrs: n_levels NHWC maps [b, h, w, c]; dims: n_levels x
-// (h, w, c); out: [b, p, sum c].  dtype 0 = float32, 1 = bfloat16.  Returns a
+// (h, w, c); out: [b, p, sum c].  dtype 0 = float32, 1 = bfloat16; nearest 1
+// takes the nearest texel instead of the bilinear lerp.  Returns a
 // cudaError_t.
 extern "C" int gather_lerp_launch(const void* grid, int b, int p, int n_levels,
                                   const void* const* ptrs, const int* dims,
-                                  int dtype, void* out, void* stream) {
+                                  int dtype, int nearest, void* out, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels) return cudaErrorInvalidValue;
   if (b * p == 0) return cudaSuccess;
   if (b > 65535) return cudaErrorInvalidValue;  // images ride the grid's y axis
@@ -546,8 +565,8 @@ extern "C" int gather_lerp_launch(const void* grid, int b, int p, int n_levels,
   L.c_total = off;
   const float* g = static_cast<const float*>(grid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(g, b, p, L, out, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(g, b, p, L, out, s);
+  if (dtype == 0) return launch<float>(g, b, p, L, nearest != 0, out, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(g, b, p, L, nearest != 0, out, s);
   return cudaErrorInvalidValue;
 }
 

@@ -3,10 +3,14 @@
 
 Token points come from the field-guided sampler (eval, and the field-guided
 train steps) or, with ``use_presampled``, from the batch's ground-truth-near
-points jittered uniformly in +-``dist_range`` (the other train steps).  Token
+points jittered uniformly in +-``dist_range`` (the other train steps).  The
+sampler is ``sdf_infer_mode``'s ("hier" by default, "coarse2fine" or the
+dense "full" scan), per field, or with ``paired_sdf_infer`` one grouped
+"hier" cascade for both fields (``models/experimental.py``); its probes
+gather bilinearly, or with ``infer_gather_nearest`` the nearest texel.  Token
 features and cross-field queries share one merged pyramid gather
-(``merged_field_queries=True``), and the hand and object cascades run
-separately.  The ho3d preset's pyramid comes from ``DecoderBig`` (3,968
+(``merged_field_queries=True``) or take four, the cross queries through
+``sdf_forward``.  The ho3d preset's pyramid comes from ``DecoderBig`` (3,968
 channels at ResNet-50), and ho3d_render's transformer decodes one shape query
 (the pose comes from IK on the voted joints, ``ops/ik.py``).  The module's
 mode is the train flag: ``model.train()`` puts
@@ -34,6 +38,7 @@ from torch import nn
 
 from hoisdf_torch.config import Config
 from hoisdf_torch.models.decoder import Decoder, DecoderBig
+from hoisdf_torch.models.experimental import paired_sdf_infer
 from hoisdf_torch.models.layers import Linear
 from hoisdf_torch.models.resnet import ResNetBackbone
 from hoisdf_torch.models.sdf_decoder import SDFDecoder, WeightNormLinear
@@ -52,7 +57,12 @@ from hoisdf_torch.ops.grid_sample import (
 )
 from hoisdf_torch.ops.kernels.sdf_mlp import fold_weight_norm, prepare_weights, sdf_mlp
 from hoisdf_torch.ops.nerf import nerf_positional_encoding
-from hoisdf_torch.ops.point_sampling import scaled_to_cam, sdf_guided_sample_hierarchical
+from hoisdf_torch.ops.point_sampling import (
+    scaled_to_cam,
+    sdf_guided_sample,
+    sdf_guided_sample_coarse2fine,
+    sdf_guided_sample_hierarchical,
+)
 
 
 class MLP(nn.Module):
@@ -139,11 +149,23 @@ class HOISDF(nn.Module):
         grid = pixels_to_grid(project_points(cam_pts, cam_intr), self.cfg.input_img_shape)
         return grid.contiguous(), cam_pts
 
-    def _sdf_decoder_inputs(self, pyramid, points_scaled, center, cam_intr, sdf_scale):
+    def point_transformer_features(self, pyramid, points_scaled, center, cam_intr, sdf_scale):
+        """Token features [B, P, hidden - point_feat_size] and the camera
+        points, off one pyramid gather (the non-merged field queries)."""
+        grid, cam_pts = self._gather_grid(points_scaled, center, cam_intr, sdf_scale)
+        feats = multiscale_point_features(pyramid, grid, self.cfg.multiscale_layers)
+        return self.linear_transformerin(feats.to(self.compute_dtype)), cam_pts
+
+    def _sdf_decoder_inputs(self, pyramid, points_scaled, center, cam_intr, sdf_scale,
+                            nearest: bool = False):
         """Flat [B*P, in] decoder inputs (pixel feature ++ posenc ++ xyz)."""
-        c = self.cfg
         grid, _ = self._gather_grid(points_scaled, center, cam_intr, sdf_scale)
-        feats = multiscale_point_features(pyramid, grid, c.multiscale_layers)
+        return self._decoder_rows(pyramid, grid, points_scaled, nearest)
+
+    def _decoder_rows(self, pyramid, grid, points_scaled, nearest: bool = False):
+        """[B*P, in] decoder inputs from the gather at ``grid`` [B,P,2]."""
+        c = self.cfg
+        feats = multiscale_point_features(pyramid, grid, c.multiscale_layers, nearest=nearest)
         points_fea = self.linear_sdfin(feats.to(self.compute_dtype))
         posenc = nerf_positional_encoding(points_scaled, c.nerf_num_freqs)
         dec_in = torch.cat([points_fea.float(), posenc, points_scaled], dim=-1)
@@ -164,25 +186,35 @@ class HOISDF(nn.Module):
 
     @torch.no_grad()
     def sdf_infer(self, pyramid, center, cam_intr, bbox, sdf_scale, num_points, which):
-        """Field-guided sampling, without gradients: each cascade probe runs
-        the two kernels.  The sampler's sdf is unclamped; only the selected
+        """Field-guided sampling in ``sdf_infer_mode``, without gradients:
+        each probe runs the two kernels (the gather in its nearest mode with
+        ``infer_gather_nearest``, on every device, as the JAX package's
+        kernel route).  The sampler's sdf is unclamped; only the selected
         values are clamped."""
         c = self.cfg
         decoder = self.hand_sdf_decoder if which == "hand" else self.obj_sdf_decoder
         weights = prepare_weights(fold_weight_norm(decoder), self.compute_dtype)
 
         def sdf_fn(pts):  # [B, M, 3] -> [B, M]
-            flat = self._sdf_decoder_inputs(pyramid, pts, center, cam_intr, sdf_scale)
+            flat = self._sdf_decoder_inputs(pyramid, pts, center, cam_intr, sdf_scale,
+                                            nearest=c.infer_gather_nearest)
             return sdf_mlp(flat, weights).reshape(pts.shape[0], pts.shape[1])
 
-        levels = c.hier_levels
-        if which == "obj" and c.hier_levels_obj is not None:
-            levels = c.hier_levels_obj
-        points, sdf = sdf_guided_sample_hierarchical(
-            sdf_fn, center, cam_intr, bbox, sdf_scale=sdf_scale,
-            num_points=num_points, bins_n=c.bins_n, levels=levels,
-            clamp=c.clamping_distance,
-        )
+        common = dict(sdf_scale=sdf_scale, num_points=num_points, bins_n=c.bins_n,
+                      clamp=c.clamping_distance)
+        if c.sdf_infer_mode == "coarse2fine":
+            points, sdf = sdf_guided_sample_coarse2fine(
+                sdf_fn, center, cam_intr, bbox, coarse_factor=c.bins_n // c.coarse_bins,
+                keep_cells=c.coarse_keep_cells, **common)
+        elif c.sdf_infer_mode == "hier":
+            levels = c.hier_levels
+            if which == "obj" and c.hier_levels_obj is not None:
+                levels = c.hier_levels_obj
+            points, sdf = sdf_guided_sample_hierarchical(
+                sdf_fn, center, cam_intr, bbox, levels=levels, **common)
+        else:
+            points, sdf = sdf_guided_sample(
+                sdf_fn, center, cam_intr, bbox, chunk=c.sdf_infer_chunk, **common)
         return points, sdf, nerf_positional_encoding(points, c.nerf_num_freqs)
 
     def token_and_cross_queries(self, pyramid, hand_points, obj_points, mano_root,
@@ -271,6 +303,10 @@ class HOISDF(nn.Module):
                                           c.obj_sdf_scale, "obj", generator)
             hand_posenc = nerf_positional_encoding(hand_points, c.nerf_num_freqs)
             obj_posenc = nerf_positional_encoding(obj_points, c.nerf_num_freqs)
+        elif c.sdf_infer_mode == "hier" and c.paired_sdf_infer:
+            (hand_points, hand_sdf, hand_posenc), (obj_points, obj_sdf, obj_posenc) = \
+                paired_sdf_infer(self, pyramid, mano_root, obj_center, cam_intr,
+                                 batch["bbox_hand"], batch["bbox_obj"])
         else:
             hand_points, hand_sdf, hand_posenc = self.sdf_infer(
                 pyramid, mano_root, cam_intr, batch["bbox_hand"], c.hand_sdf_scale,
@@ -281,9 +317,25 @@ class HOISDF(nn.Module):
         sigma_hand = sdf_attention_weight(hand_sdf.detach(), self.hand_sigmoid_beta)
         sigma_obj = sdf_attention_weight(obj_sdf.detach(), self.obj_sigmoid_beta)
 
-        (hand_fea, obj_fea, hand_cam, obj_cam, hand_o_sdf, hand_o_posenc,
-         obj_h_sdf, obj_h_posenc) = self.token_and_cross_queries(
-            pyramid, hand_points, obj_points, mano_root, obj_center, cam_intr, generator)
+        if c.merged_field_queries:
+            (hand_fea, obj_fea, hand_cam, obj_cam, hand_o_sdf, hand_o_posenc,
+             obj_h_sdf, obj_h_posenc) = self.token_and_cross_queries(
+                pyramid, hand_points, obj_points, mano_root, obj_center, cam_intr, generator)
+        else:
+            hand_fea, hand_cam = self.point_transformer_features(
+                pyramid, hand_points, mano_root, cam_intr, c.hand_sdf_scale)
+            obj_fea, obj_cam = self.point_transformer_features(
+                pyramid, obj_points, obj_center, cam_intr, c.obj_sdf_scale)
+            # the cross queries through the other field's decoder, each at
+            # its own gather (the original's "# bug" frames, as merged)
+            hand_o_points = (hand_cam - obj_center[:, None, :]) * c.obj_sdf_scale
+            hand_o_sdf, _ = self.sdf_forward(pyramid, hand_o_points, obj_center, cam_intr,
+                                             c.obj_sdf_scale, "obj", generator)
+            hand_o_posenc = nerf_positional_encoding(hand_o_points, c.nerf_num_freqs)
+            obj_h_points = (obj_cam - mano_root[:, None, :]) * c.hand_sdf_scale
+            obj_h_sdf, _ = self.sdf_forward(pyramid, obj_h_points, mano_root, cam_intr,
+                                            c.hand_sdf_scale, "hand", generator)
+            obj_h_posenc = nerf_positional_encoding(obj_h_points, c.nerf_num_freqs)
         hand_points_notrans = hand_cam - mano_root[:, None, :]
         obj_points_notrans = obj_cam - obj_center[:, None, :]
         hand_o_points_notrans = hand_cam - obj_center[:, None, :]

@@ -2,7 +2,7 @@
 
 Feature maps are NHWC, as in the JAX package; the point axis is a flat list of
 P query points per image.  The multi-level gather is one launch of the
-``gather_lerp`` kernel on the card.
+``gather_lerp`` kernel on the card, in its bilinear or its nearest mode.
 """
 
 from __future__ import annotations
@@ -12,20 +12,27 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from hoisdf_torch.ops.kernels.gather_lerp import gather_lerp, grid_sample_bilinear
+from hoisdf_torch.ops.kernels.gather_lerp import (
+    gather_lerp,
+    grid_sample_bilinear,
+    grid_sample_nearest,
+)
 
-__all__ = ["grid_sample_bilinear", "multiscale_point_features", "pixels_to_grid",
-           "project_points"]
+__all__ = ["grid_sample_bilinear", "grid_sample_nearest", "multiscale_point_features",
+           "pixels_to_grid", "project_points"]
 
 
 def multiscale_point_features(
     feature_pyramid: Dict[str, torch.Tensor],
     grid: torch.Tensor,
     layer_names: Sequence[str],
+    *,
+    nearest: bool = False,
 ) -> torch.Tensor:
-    """Bilinear-sample every named NHWC level at ``grid`` [B,P,2] and
-    channel-concatenate in ``layer_names`` order -> [B, P, sum(C_l)]."""
-    return gather_lerp(grid, [feature_pyramid[name] for name in layer_names])
+    """Bilinear-sample (``nearest``: take the nearest texel of) every named
+    NHWC level at ``grid`` [B,P,2] and channel-concatenate in
+    ``layer_names`` order -> [B, P, sum(C_l)]."""
+    return gather_lerp(grid, [feature_pyramid[name] for name in layer_names], nearest)
 
 
 def project_points(points_cam: torch.Tensor, cam_intr: torch.Tensor) -> torch.Tensor:

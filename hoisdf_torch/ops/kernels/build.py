@@ -108,7 +108,7 @@ def library() -> ctypes.CDLL:
             vp, i = ctypes.c_void_p, ctypes.c_int
             lib.sdf_mlp_launch.argtypes = [vp, i, i, i, vp, vp, i, vp, vp]
             lib.sdf_mlp_launch.restype = i
-            lib.gather_lerp_launch.argtypes = [vp, i, i, i, vp, vp, i, vp, vp]
+            lib.gather_lerp_launch.argtypes = [vp, i, i, i, vp, vp, i, i, vp, vp]
             lib.gather_lerp_launch.restype = i
             lib.gather_lerp_bwd_launch.argtypes = [vp, vp, i, i, i, vp, i, vp, vp, vp, i, vp]
             lib.gather_lerp_bwd_launch.restype = i

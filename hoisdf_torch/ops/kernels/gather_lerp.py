@@ -10,6 +10,12 @@ maps, lerp in f32, result in the maps' type.  The backward is
 ``grid_sample.py::_gsb_fast_bwd``: the 4-corner scatter-add of the output
 gradient into d/dfeat, accumulated in f32, and no gradient for the grid (every
 caller samples at a detached grid).
+
+The nearest mode (``nearest=True``) is the counterpart of
+``grid_sample.py::grid_sample_nearest`` for every level: the same clipped
+coordinate, rounded half to even, one texel per level.  It is forward only:
+the JAX package uses it in the sampler's probes alone, which take no
+gradient.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import ctypes
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from hoisdf_torch.ops.kernels import launch_counts
@@ -61,6 +68,42 @@ def _corners(grid: torch.Tensor, h: int, w: int):
 def gather_lerp_plain(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> torch.Tensor:
     """Per-level bilinear sample, channel-concatenated: [B, P, sum C]."""
     return torch.cat([grid_sample_bilinear(f, grid) for f in feats], dim=-1)
+
+
+def grid_sample_nearest(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """The texel of ``feat`` [B,H,W,C] nearest each point of ``grid`` [B,P,2]
+    -> [B,P,C]: the bilinear version's clipped coordinate, rounded half to
+    even."""
+    b, h, w, c = feat.shape
+    idx = nearest_index(grid, h, w)[..., None].expand(-1, -1, c)
+    return torch.gather(feat.reshape(b, h * w, c), 1, idx)
+
+
+def nearest_index(grid: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The flat texel index (long, [B,P]) that the nearest mode reads for
+    each point of ``grid`` [B,P,2] on an h x w map."""
+    x = torch.clamp((grid[..., 0] + 1.0) * 0.5 * (w - 1), 0.0, w - 1)
+    y = torch.clamp((grid[..., 1] + 1.0) * 0.5 * (h - 1), 0.0, h - 1)
+    return torch.round(y).long() * w + torch.round(x).long()
+
+
+def half_texel_coords(sizes: Sequence[int]) -> np.ndarray:
+    """Normalized coordinates (f32) that fall on an exact .5 texel position
+    of a map of edge ``s`` in ``sizes``, with x computed as the gather
+    computes it in f32: the points where rounding half to even decides."""
+    out = []
+    for s in sizes:
+        k = np.arange(s - 1, dtype=np.float32)
+        g = (np.float32(2.0) * (k + np.float32(0.5)) / np.float32(s - 1)
+             - np.float32(1.0)).astype(np.float32)
+        x = ((g + np.float32(1.0)) * np.float32(0.5) * np.float32(s - 1)).astype(np.float32)
+        out.append(g[(x - np.floor(x)) == np.float32(0.5)])
+    return np.concatenate(out)
+
+
+def gather_nearest_plain(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-level nearest sample, channel-concatenated: [B, P, sum C]."""
+    return torch.cat([grid_sample_nearest(f, grid) for f in feats], dim=-1)
 
 
 def gather_lerp_bwd_plain(grid: torch.Tensor, g: torch.Tensor,
@@ -190,19 +233,27 @@ class _GatherLerp(torch.autograd.Function):
                         for d, need in zip(dfeats, ctx.needs_input_grad[1:])])
 
 
-def gather_lerp(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Bilinear-sample up to five NHWC levels at ``grid`` [B,P,2] (f32) and
-    channel-concatenate -> [B, P, sum C] in the maps' type (f32 or bf16).
-    CPU tensors take :func:`gather_lerp_plain`.  Differentiable in the maps
-    (backward :func:`gather_lerp_bwd`); the grid is detached."""
+def gather_lerp(grid: torch.Tensor, feats: Sequence[torch.Tensor],
+                nearest: bool = False) -> torch.Tensor:
+    """Bilinear-sample (or with ``nearest``, take the nearest texel of) up to
+    five NHWC levels at ``grid`` [B,P,2] (f32) and channel-concatenate ->
+    [B, P, sum C] in the maps' type (f32 or bf16).  CPU tensors take
+    :func:`gather_lerp_plain` / :func:`gather_nearest_plain`.  The bilinear
+    gather is differentiable in the maps (backward :func:`gather_lerp_bwd`;
+    the grid is detached); the nearest one raises if a map needs a
+    gradient."""
     if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
+        if nearest:
+            raise ValueError("gather_lerp: the nearest mode is forward only; "
+                             "call it without a gradient")
         return _GatherLerp.apply(grid.detach(), *feats)
-    return _gather_lerp_forward(grid, feats)
+    return _gather_lerp_forward(grid, feats, nearest)
 
 
-def _gather_lerp_forward(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+def _gather_lerp_forward(grid: torch.Tensor, feats: Sequence[torch.Tensor],
+                         nearest: bool = False) -> torch.Tensor:
     if grid.device.type == "cpu":
-        return gather_lerp_plain(grid, feats)
+        return (gather_nearest_plain if nearest else gather_lerp_plain)(grid, feats)
     if grid.device.type != "cuda":
         raise ValueError(f"gather_lerp: unsupported device {grid.device}")
     if not 1 <= len(feats) <= MAX_LEVELS:
@@ -229,8 +280,8 @@ def _gather_lerp_forward(grid: torch.Tensor, feats: Sequence[torch.Tensor]) -> t
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
         rc = lib.gather_lerp_launch(grid.data_ptr(), b, p, len(feats), ptrs, dims,
-                                    _DTYPES[dtype], out.data_ptr(), stream)
+                                    _DTYPES[dtype], int(nearest), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"gather_lerp kernel launch failed with CUDA error {rc}")
-    launch_counts["gather_lerp"] += 1
+    launch_counts["gather_lerp_nearest" if nearest else "gather_lerp"] += 1
     return out

@@ -135,11 +135,13 @@ def test_evaluate_main_on_the_eval_split(trees, tmp_path, setting):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--cfg", "sdf_infer_mode=full"], "sdf_infer_mode"),
+    (["--cfg", "approx_selection_topk=true"], "approx_selection_topk"),
+    (["--cfg", "fused_sdf_infer=false"], "fused_sdf_infer"),
     (["--backbone-init", "weights/"], "--backbone-init"),
 ])
 def test_train_loop_refuses_what_is_not_ported(argv, match):
-    """A path not ported yet is refused by name: a config field the port does
-    not have (the dense sampler's), or a flag."""
-    with pytest.raises((SystemExit, TypeError), match=match):
+    """A path not ported is refused by name: a setting the port refuses (the
+    TPU's approximate top-k), a config field it does not have (a TPU
+    compiler knob), or a flag."""
+    with pytest.raises((SystemExit, TypeError, ValueError), match=match):
         train_loop.main(["--setting", "dexycb", "--cpu", *argv])

@@ -30,7 +30,8 @@ def test_port_imports_no_jax():
                    "utils/timer.py", "evaluate.py", "metrics.py", "ops/ik.py",
                    "data/ho3d.py", "data/loader.py", "data/dexycb.py", "data/transforms.py",
                    "data/image_io.py", "data/meshes.py", "predictor.py",
-                   "native/__init__.py", "native/build.py", "ops/warp.py"):
+                   "native/__init__.py", "native/build.py", "ops/warp.py",
+                   "models/experimental.py", "ops/selection_quality.py"):
         assert f"hoisdf_torch/{module}" in names, module
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]

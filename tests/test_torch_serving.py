@@ -10,6 +10,7 @@ and one thread count are bitwise repeatable, so coalescing and the async
 split are held bit for bit.
 """
 
+import dataclasses
 import threading
 
 import numpy as np
@@ -205,15 +206,32 @@ def test_uint8_transfer_dtype_bit_exact_for_u8_sources(tiny_cfg, pred, pred_u8):
     np.testing.assert_array_equal(out_host["mano_joints"], out_u8["mano_joints"])
 
 
-@pytest.mark.parametrize("wire_name", ["float32", "uint8"])
+# the sampler settings a warmed step is checked in besides the default "hier"
+# (on both wires): each on the f32 wire
+SAMPLER_CASES = {
+    "full": dict(sdf_infer_mode="full", sdf_infer_chunk=1024),
+    "coarse2fine": dict(sdf_infer_mode="coarse2fine", coarse_bins=4, coarse_keep_cells=16),
+    "paired": dict(paired_sdf_infer=True),
+    "nearest": dict(infer_gather_nearest=True),
+}
+
+
+@pytest.mark.parametrize("case", ["float32", "uint8", *SAMPLER_CASES])
 def test_warmed_step_builds_no_tensor_from_host_data(tiny_cfg, pred, pred_u8, monkeypatch,
-                                                     wire_name):
+                                                     case):
     """A second predict_async (model forward, sampler, wire decode, MANO,
     packing) calls none of torch.tensor / as_tensor / from_numpy: on the
     card each would be a copy from the host that holds the host until the
-    card reaches it.  The card's own check (set_sync_debug_mode) is
-    chip_smoke's serve_async phase."""
-    p = pred_u8 if wire_name == "uint8" else pred
+    card reaches it.  Checked for the default sampler on both wires and for
+    every other sampler setting ("full", "coarse2fine", the paired cascade,
+    the nearest gather).  The card's own check (set_sync_debug_mode) is
+    chip_smoke's serve_async and sampler phases."""
+    if case in SAMPLER_CASES:
+        cfg = dataclasses.replace(tiny_cfg, **SAMPLER_CASES[case])
+        p = Predictor(cfg, batch_size=BATCH, device="cpu")
+        p.warmup()
+    else:
+        p = pred_u8 if case == "uint8" else pred
     frames = _frames(tiny_cfg, 2, seed=31)
     p.materialize(*p.predict_async(frames))
     calls = []

@@ -471,3 +471,76 @@ def check_train_step(setup, branch):
     rm = "backbone_net.resnet.bn1.running_mean"
     assert not torch.equal(after[rm], before[rm])  # frozen BNs' statistics still move
     return state, losses
+
+
+# ---- the sampler settings' eval forward ----------------------------------------
+#
+# The raw eval forward (``HOISDF.apply`` against the port module's forward),
+# at batch 2, f32, ``supervise_sdf=False``, with one flax init serving every
+# setting (the settings change no parameter).
+
+FORWARD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def forward_setup():
+    """One JAX init at the tiny config (BN statistics moved off (0, 1)) and
+    the synthetic eval inputs with the image on the u8 grid."""
+    jcfg, pcfg = configs()
+    _, params, stats = init_jax(jcfg)
+    stats = perturb_batch_stats(stats)
+    inputs, _ = split_inputs_targets(synthetic_batch(jcfg, 2, seed=3, train=False))
+    inputs["img"] = wire.quantize_image_u8(inputs["img"]).astype(np.float32) / 255.0
+    return dict(jcfg=jcfg, pcfg=pcfg, params=params, stats=stats, inputs=inputs)
+
+
+def forward_pair(setup, **over):
+    """(port outputs, JAX outputs) of the eval forward with ``over`` set on
+    both configs, as numpy dicts."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    jcfg = dataclasses.replace(setup["jcfg"], **over)
+    pcfg = dataclasses.replace(setup["pcfg"], **over)
+    jmodel = jax_build_model(jcfg)
+    apply = jax.jit(functools.partial(jmodel.apply, use_presampled=False, supervise_sdf=False))
+    want = apply({"params": setup["params"], "batch_stats": setup["stats"]},
+                 {k: jnp.asarray(v) for k, v in setup["inputs"].items()})
+    model = port_model(pcfg, setup["params"], setup["stats"])
+    with torch.inference_mode():
+        got = model({k: torch.from_numpy(v) for k, v in setup["inputs"].items()},
+                    supervise_sdf=False)
+    return ({k: v.numpy() for k, v in got.items()},
+            {k: np.asarray(v) for k, v in want.items()}, pcfg)
+
+
+def lattice_ids(points_scaled, bins_n):
+    step = 2.0 / (bins_n - 1)
+    ijk = np.rint((points_scaled.astype(np.float64) + 1.0) / step).astype(int)
+    return (ijk[..., 0] * bins_n + ijk[..., 1]) * bins_n + ijk[..., 2]
+
+
+def assert_forward_matches_jax(got, want, cfg):
+    """The same selected lattice points per field and image (as sets), and
+    every output within ``FORWARD_TOL``, per-point outputs after sorting by
+    lattice point (near-equal |sdf| may order otherwise under another
+    summation order).  The attention weights are left out: their key axis
+    follows the selection order."""
+    per_field = {"hand": ("hand_points", "hand_sdf", "hand_points_notrans", "hand_off",
+                          "hand_cls"),
+                 "obj": ("obj_points", "obj_sdf", "obj_rot", "obj_trans")}
+    assert set(got) == set(want)
+    done = {"attn_wts"}
+    for field, keys in per_field.items():
+        ids_g = lattice_ids(got[f"{field}_points"], cfg.bins_n)
+        ids_w = lattice_ids(want[f"{field}_points"], cfg.bins_n)
+        np.testing.assert_array_equal(np.sort(ids_g, 1), np.sort(ids_w, 1),
+                                      err_msg=f"selected {field} points differ")
+        for k in keys:
+            np.testing.assert_allclose(_sorted_rows(got[k], ids_g), _sorted_rows(want[k], ids_w),
+                                       err_msg=k, **FORWARD_TOL)
+            done.add(k)
+    for k in set(want) - done:
+        assert got[k].shape == want[k].shape, k
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **FORWARD_TOL)
