@@ -137,11 +137,35 @@ Phases, each printing one JSON line:
              the three batches).  The mesh metrics of dexycb_full and the IK
              of ho3d_render run on the card.  Then eval_check: one batch of
              card outputs through the Evaluator on the card and on the CPU.
-9. kernels - one line listing every kernel with the numbers this run took
+9. parallel - the data-parallel wrappers (hoisdf_torch/parallel), the dexycb
+             preset at full width, batch 22, f32, TF32 off, dropout off, no
+             jitter; one line per check ("phase": "parallel", "check").
+             world1: a child process on a world-size-1 NCCL group runs the
+             train step in DDP, ZeRO-1 and FSDP against the plain step,
+             presampled twice and field-guided twice, each step from the
+             plain run's state of that step (the field-guided steps on one
+             recorded selection, cuDNN deterministic): every loss within
+             1e-6 relative and each parameter group's gradient within 1e-5
+             scaled, a second plain run as the card's floor, every kernel
+             launched; each wrapper's host ms per step (median of 3) beside
+             the plain step's, and its peak memory.  two_ranks: two child
+             processes share the card (gloo), 11 rows each of one 22-row
+             batch, DDP and ZeRO-1, every ReLU passing the one-process
+             step's elements: the losses within 1e-5 relative, each group's
+             gradient within 1e-3 (the betas 5e-3) of the one-process step's;
+             each rank's peak memory; FSDP where gloo gathers CUDA tensors,
+             else the reason.  eval: evaluate_batches at two ranks (gloo,
+             the predictions gathered to rank 0) against one rank, f32, on
+             one recorded selection: every result within 1e-5.  A rank that
+             fails fails the run.  Two ranks on one card measure correctness
+             and memory, not scaling.
+10. kernels - one line listing every kernel with the numbers this run took
              (the gather's nearest mode in its `nearest_*` fields, from the
              sampler phase; the backward's `ho3d_*` fields from the ho3d train step,
              every kernel's launches per preset's train phase, and the two
-             serving kernels' launches in serve_closed, `launches_server`).
+             serving kernels' launches in serve_closed, `launches_server`,
+             and each kernel's launches in the world1 check's four steps
+             under each wrapper, `launches_parallel`).
 
 Any failed check raises, and the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no result.
@@ -1806,17 +1830,38 @@ SCALAR_GROUPS = ("hand_sigmoid_beta", "obj_sigmoid_beta")
 TIE_REL = 1e-3
 
 
-def relu_pattern(masks=None):
+def shard_rows(mask, shape, shard):
+    """The rows of a recorded global-batch ``mask`` that rank ``shard[0]`` of
+    ``shard[1]`` holds, for a call whose input has ``shape``: the one
+    dimension where the two differ is the batch's (the leading one, the
+    second under a leading layer axis, or a row axis flattened batch-major),
+    and the rank holds a contiguous block of it."""
+    if shard is None or tuple(mask.shape) == tuple(shape):
+        return mask
+    rank, world = shard
+    dims = [d for d, (m, x) in enumerate(zip(mask.shape, shape)) if m != x]
+    if (len(mask.shape) != len(shape) or len(dims) != 1
+            or mask.shape[dims[0]] != world * shape[dims[0]]):
+        raise AssertionError(f"a ReLU input of {tuple(shape)} is no rank's share of "
+                             f"{tuple(mask.shape)}")
+    n = shape[dims[0]]
+    return mask.narrow(dims[0], rank * n, n)
+
+
+def relu_pattern(masks=None, shard=None):
     """A dispatch mode over every ReLU (``aten::relu``, ``aten::relu_``), in
     call order.  Without ``masks`` it records which elements pass (x > 0) into
     ``.masks`` (on the host; None for a call outside autograd, such as the
     point sampler's, whose rows need not come in the same order on another
-    run).  With them it imposes them: each call passes exactly the recorded
-    elements (a passing element below zero is lifted to the smallest normal
-    float, so that the backward, which reads the output, lets it through),
-    and ``.ties`` notes for each call how many of its own decisions differ
-    from the recorded ones, the largest |x| among those, and the call's
-    largest |x| and size."""
+    run).  With them it imposes them on the calls inside autograd, in order
+    (a call outside autograd passes untouched and takes no mask): each
+    passes exactly the recorded elements (a passing element below zero is
+    lifted to the smallest normal float, so that the backward, which reads
+    the output, lets it through), and ``.ties`` notes for each how many of
+    its own decisions differ from the recorded ones, the largest |x| among
+    those, and the call's largest |x| and size.  With ``shard=(rank,
+    world)`` the masks are a global batch's, and a rank of a data-parallel
+    step imposes its rows (``shard_rows``)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -1825,7 +1870,7 @@ def relu_pattern(masks=None):
     class ReluPattern(TorchDispatchMode):
         def __init__(self):
             super().__init__()
-            self.masks = [] if masks is None else masks
+            self.masks = [] if masks is None else [m for m in masks if m is not None]
             self.ties = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -1837,14 +1882,15 @@ def relu_pattern(masks=None):
             if masks is None:
                 self.masks.append(own.cpu() if torch.is_grad_enabled() else None)
                 return out
-            i = len(self.ties)
-            if i >= len(masks) or (masks[i] is not None) != torch.is_grad_enabled() or (
-                    masks[i] is not None and masks[i].shape != x.shape):
-                raise AssertionError("the ReLU calls differ from the recorded run's")
-            if masks[i] is None:
-                self.ties.append((0, 0.0, 0.0, 0))
+            if not torch.is_grad_enabled():
                 return out
-            want = masks[i].to(x.device)
+            i = len(self.ties)
+            if i >= len(self.masks):
+                raise AssertionError("the ReLU calls differ from the recorded run's")
+            want = shard_rows(self.masks[i], x.shape, shard)
+            if want.shape != x.shape:
+                raise AssertionError("the ReLU calls differ from the recorded run's")
+            want = want.to(x.device)
             differ = own != want
             mag = x.abs()
             self.ties.append((int(differ.sum()), float(mag[differ].max()) if differ.any() else 0.0,
@@ -1962,7 +2008,7 @@ def compare_train_step(cfg, batch_size: int, device, seed: int = 0, loss_tol: fl
                           abs(abs(float(t.sum())) - norm[name]) / float(t_c.abs().sum())
                           for t, norm in ((t_c, norm_c), (t_d, norm_d)))}
     flips = [t for t in impose.ties if t[0]]
-    ties_ok = (len(impose.ties) == len(record.masks)
+    ties_ok = (len(impose.ties) == len(impose.masks)
                and all(near <= tie_rel * top for _, near, top, _ in flips))
     finite = all(math.isfinite(v) for v in (*loss_d.values(), *norm_d.values(),
                                             *loss_n.values(), *norm_n.values()))
@@ -2325,6 +2371,418 @@ def warp_phase(device, batch: int = 22, src_hw=(480, 640), res: int = 256, seed:
     return out
 
 
+# ---- phase 10: the data-parallel wrappers --------------------------------------
+
+PARALLEL_MODES = ("off", "zero1", "fsdp")
+# the world-size-1 comparison: presampled twice, then field-guided twice, on
+# the two batches in turn
+WORLD1_STEPS = ((True, 0), (True, 1), (False, 0), (False, 1))
+WORLD1_LOSS_TOL, WORLD1_GROUP_TOL = 1e-6, 1e-5
+TWO_RANKS_LOSS_TOL = 1e-5
+PARALLEL_EVAL_TOL = 1e-5
+
+
+def _plain_model(cfg, seed: int = 0):
+    """``build_model``'s seeded weights with every dropout off, on the host."""
+    from hoisdf_torch.models.hoisdf import build_model
+    from hoisdf_torch.models.layers import Dropout
+
+    model = build_model(cfg, seed)
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return model
+
+
+def _train_batches(cfg, batch_size: int, n: int = 2):
+    from hoisdf_torch.data.synthetic import split_inputs_targets, synthetic_batch
+
+    return [split_inputs_targets(synthetic_batch(cfg, batch_size, seed=200 + i, train=True))
+            for i in range(n)]
+
+
+def _groups_of(state_dict, names) -> dict:
+    """Per top-level module: its parameters' values, flat f64 on the host."""
+    import torch
+
+    groups = {}
+    for name in names:
+        groups.setdefault(name.split(".")[0], []).append(
+            state_dict[name].detach().double().reshape(-1).cpu())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def _world1_child(mesh, cfg, batch_size: int):
+    """On a world-size-1 NCCL group: the train step in plain (no group), DDP,
+    ZeRO-1 and FSDP through WORLD1_STEPS, each step from the same state:
+    before each step every mode loads the plain run's state of that step
+    (weights and moments, ``parallel.zero.load_full_state``), and the
+    field-guided steps take the selections of a first, recording plain run
+    (``recorded_selections``).  cuDNN picks deterministic algorithms for
+    these steps.  Per mode and step: the losses and each parameter group's
+    gradient, held against the plain run's (the gradient's scaled
+    difference: ||g - g_plain|| / ||g_plain||); a second plain run gives the
+    card's own floor.  Then each mode's host ms per presampled step (median
+    of 3, cuDNN's default algorithms).  Per mode also the kernel launches of
+    the four steps and the peak memory."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+    from hoisdf_torch.parallel.zero import full_state_dicts, load_full_state
+    from hoisdf_torch.train import create_train_state, make_train_step
+
+    dev = mesh.device
+    base = _plain_model(cfg)
+    names = [n for n, _ in base.named_parameters()]
+    batches = _train_batches(cfg, batch_size)
+    step = make_train_step(cfg, ManoBuffers.from_model(make_synthetic_mano(0)), device=dev)
+
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else
+                (v.detach().cpu().clone() if isinstance(v, torch.Tensor) else copy.deepcopy(v))
+                for k, v in tree.items()}
+
+    def grads_of(state):
+        from torch.distributed.tensor import DTensor
+
+        return _groups_of({n: (p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad)
+                           for n, p in state.module.named_parameters()}, names)
+
+    out, selections, ref_states, ref = {}, [], [], None
+    torch.backends.cudnn.deterministic = True
+    for mode in ("plain_record", "plain", *PARALLEL_MODES, "plain_repeat"):
+        plain = mode.startswith("plain")
+        state = create_train_state(cfg, copy.deepcopy(base), 100, device=dev,
+                                   mesh=None if plain else mesh,
+                                   zero="off" if plain else mode)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        losses, grads = [], []
+        for i, (pre, b) in enumerate(WORLD1_STEPS):
+            if mode == "plain":
+                ref_states.append(tuple(host(d) for d in full_state_dicts(state)))
+            elif mode != "plain_record":
+                load_full_state(state, *ref_states[i])
+                state.step = i
+            impose = None if mode == "plain_record" else selections[i]
+            with recorded_selections(impose) as seen:
+                _, l = step(state, *batches[b], None, 0.0, use_presampled=pre)
+            if mode == "plain_record":
+                selections.append([s["points"] for s in seen])
+                continue
+            losses.append({k: float(v) for k, v in l.items()})
+            grads.append(grads_of(state))
+        torch.cuda.synchronize(dev)
+        entry = {"launches": dict(launch_counts),
+                 "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if mode == "plain":
+            ref = (losses, grads)
+        if mode != "plain_record":
+            entry["losses"] = losses
+            entry["grad_scaled_diff"] = [
+                {k: float((g[k] - w[k]).norm() / max(float(w[k].norm()), 1e-30)) for k in w}
+                for g, w in zip(grads, ref[1])]
+        if mode != "plain_repeat" and mode != "plain_record":
+            torch.backends.cudnn.deterministic = False
+            times = []
+            for _ in range(4):  # the first as a warmup
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                step(state, *batches[0], None, 0.0, use_presampled=True)
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            torch.backends.cudnn.deterministic = True
+            entry.update(ms_per_step=float(np.median(times[1:])), ms_runs=times[1:])
+        out[mode] = entry
+        del state
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    out["tf32"] = tf32_on()
+    return out
+
+
+def _loss_rel_err(got, want) -> float:
+    return max(abs(got[k] - v) / max(abs(v), 1e-3) for k, v in want.items())
+
+
+def world1_check(cfg, batch_size: int, device, workdir: str) -> dict:
+    """The parallel phase's ``world1`` line: the wrappers on one card through
+    a world-size-1 NCCL group (a child process) against the plain step, step
+    by step from the same state (``_world1_child``): each loss within
+    WORLD1_LOSS_TOL relative, each group's gradient within WORLD1_GROUP_TOL
+    scaled or within twice the card's own floor (a second plain run's,
+    ``card_floor``), where that is more; every kernel of the path launched;
+    the wrappers' host ms per step beside the plain step's."""
+    import numpy as np
+
+    from hoisdf_torch.parallel.dryrun import run_ranks
+
+    runs = run_ranks(_world1_child, 1, workdir, cfg, batch_size, backend="nccl",
+                     device=str(device), timeout=900)[0]
+    ref = runs["plain"]
+    res = {"phase": "parallel", "check": "world1", "setting": cfg.setting, "batch": batch_size,
+           "backend": "nccl", "world": 1, "dtype": cfg.compute_dtype, "tf32": runs["tf32"],
+           "dropout": False, "dist_range": 0.0,
+           "steps": ["presampled" if pre else "field_guided" for pre, _ in WORLD1_STEPS],
+           "losses_plain": ref["losses"], "loss_tol": WORLD1_LOSS_TOL,
+           "group_tol": WORLD1_GROUP_TOL, "card": smi_line()}
+    # the gather's backward adds its fine levels with f32 atomics, so two
+    # plain runs differ too: a group may reach twice that floor
+    floor = max(max(d.values()) for d in runs["plain_repeat"]["grad_scaled_diff"])
+    group_tol = max(WORLD1_GROUP_TOL, 2 * floor)
+    res.update(card_floor=floor, group_tol_applied=group_tol)
+    ok = True
+    for mode in (*PARALLEL_MODES, "plain_repeat"):
+        r = runs[mode]
+        loss_err = max(_loss_rel_err(g, w) for g, w in zip(r["losses"], ref["losses"]))
+        group_err = max(max(d.values()) for d in r["grad_scaled_diff"])
+        res[mode] = {"loss_rel_err": loss_err, "grad_scaled_diff_max": group_err,
+                     "grad_scaled_diff": r["grad_scaled_diff"],
+                     "bitwise": r["losses"] == ref["losses"] and group_err == 0.0,
+                     "peak_mem_gib": r["peak_mem_gib"], "launches": r["launches"]}
+        if mode in PARALLEL_MODES:
+            res[mode].update(ms_per_step=r["ms_per_step"], ms_runs=r["ms_runs"])
+            ok = ok and (loss_err <= WORLD1_LOSS_TOL and group_err <= group_tol
+                         and all(r["launches"][k] > 0
+                                 for k in ("sdf_mlp", "gather_lerp", "gather_lerp_bwd")))
+    res["plain"] = {"ms_per_step": ref["ms_per_step"], "ms_runs": ref["ms_runs"],
+                    "peak_mem_gib": ref["peak_mem_gib"], "launches": ref["launches"]}
+    finite = all(np.isfinite(v) for m in ("plain", *PARALLEL_MODES)
+                 for l in runs[m]["losses"] for v in l.values())
+    res["finite"] = finite
+    res["ok"] = ok and finite and not res["tf32"]
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("the data-parallel wrappers at world size 1 disagree with the "
+                             "plain step, a loss is not finite or a kernel never ran")
+    return res
+
+
+def _two_ranks_child(mesh, cfg, ref_path: str):
+    """One of two ranks on one card (gloo): its 11 rows of the 22-row batch,
+    one presampled step in DDP and in ZeRO-1 from the reference's weights,
+    every ReLU passing the reference's rows (``relu_pattern(shard=...)``);
+    rank 0 holds the gradients against the one-process step's.  Then FSDP,
+    if gloo gathers and scatters CUDA tensors.  Per mode: losses, ReLU ties,
+    peak memory; rank 0: each group's gradient error."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+    from hoisdf_torch.parallel.mesh import shard_batch
+    from hoisdf_torch.train import create_train_state, make_train_step
+
+    dev = mesh.device
+    ref = torch.load(ref_path, map_location="cpu", mmap=True, weights_only=False)
+    base = _plain_model(cfg)
+    inputs, targets = ref["batch"]
+    inputs, targets = shard_batch(inputs, mesh), shard_batch(targets, mesh)
+    step = make_train_step(cfg, ManoBuffers.from_model(make_synthetic_mano(0)), device=dev)
+    out = {}
+    for mode in PARALLEL_MODES:
+        if mode == "fsdp":
+            probe = torch.zeros(mesh.world, device=dev)
+            try:
+                dist.all_gather_into_tensor(probe, torch.ones(1, device=dev))
+            except (RuntimeError, ValueError, NotImplementedError) as exc:
+                out[mode] = {"skipped": f"{type(exc).__name__}: {exc}".strip()[:300]}
+                continue
+        state = create_train_state(cfg, copy.deepcopy(base), 100, device=dev, mesh=mesh,
+                                   zero=mode)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        impose = relu_pattern(ref["relu_masks"], shard=(mesh.rank, mesh.world))
+        reset_launch_counts()
+        with impose:
+            _, losses = step(state, inputs, targets, None, 0.0, use_presampled=True)
+        torch.cuda.synchronize(dev)
+        entry = {"losses": {k: float(v) for k, v in losses.items()},
+                 "ties": impose.ties, "launches": dict(launch_counts),
+                 "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        grads = {n: p.grad for n, p in state.module.named_parameters()}
+        if mode != "fsdp" and mesh.rank == 0:
+            got = _groups_of(grads, ref["names"])
+            entry["grad_rel_err"] = {k: float((v - ref["grads"][k]).norm()
+                                              / max(float(ref["grads"][k].norm()), 1e-30))
+                                     for k, v in got.items()}
+        out[mode] = entry
+        del state, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def two_ranks_check(cfg, batch_size: int, device, workdir: str, grad_tol: float = 1e-3,
+                    scalar_grad_tol: float = 5e-3, tie_rel: float = TIE_REL) -> dict:
+    """The parallel phase's ``two_ranks`` line: two processes on the one card
+    (NCCL refuses two ranks on a device; gloo all-reduces and broadcasts
+    CUDA tensors), each with half of a ``batch_size``-row batch, in DDP and
+    ZeRO-1, against this process's one-process step on the whole batch:
+    the losses within TWO_RANKS_LOSS_TOL relative; each parameter group's
+    gradient within ``grad_tol`` relative in norm, the scalar SDF betas
+    within ``scalar_grad_tol`` (``compare_train_step``'s tolerances), the
+    ranks' ReLUs passing the one-process step's elements (its own decisions
+    differing at near-ties only).  Two ranks that share a card measure
+    correctness and per-rank memory, not scaling."""
+    import os
+
+    import torch
+
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.parallel.dryrun import run_ranks
+    from hoisdf_torch.train import create_train_state, make_train_step
+
+    batch = _train_batches(cfg, batch_size, 1)[0]
+    state = create_train_state(cfg, _plain_model(cfg), 100, device=device)
+    record = relu_pattern()
+    with record:
+        _, losses = make_train_step(cfg, ManoBuffers.from_model(make_synthetic_mano(0)),
+                                    device=device)(state, *batch, None, 0.0, use_presampled=True)
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = _groups_of({n: p.grad for n, p in state.model.named_parameters()}, names)
+    ref_losses = {k: float(v) for k, v in losses.items()}
+    ref_path = os.path.join(workdir, "two_ranks_ref.pt")
+    torch.save({"batch": batch, "relu_masks": record.masks, "grads": grads, "names": names},
+               ref_path)
+    del state, record
+    torch.cuda.empty_cache()
+    ranks = run_ranks(_two_ranks_child, 2, workdir, cfg, ref_path, backend="gloo",
+                      device=str(device), timeout=900)
+    res = {"phase": "parallel", "check": "two_ranks", "setting": cfg.setting,
+           "batch": batch_size, "rows_per_rank": batch_size // 2, "backend": "gloo",
+           "world": 2, "shared_card": True, "dtype": cfg.compute_dtype, "tf32": tf32_on(),
+           "losses_one_process": ref_losses, "loss_tol": TWO_RANKS_LOSS_TOL,
+           "grad_tol": grad_tol, "scalar_grad_tol": scalar_grad_tol, "tie_rel": tie_rel,
+           "card": smi_line(),
+           "note": "two ranks share one card: correctness and per-rank memory, not scaling"}
+    ok = True
+    for mode in PARALLEL_MODES:
+        if "skipped" in ranks[0][mode]:
+            res[mode] = {"run": False, "reason": ranks[0][mode]["skipped"],
+                         "checked_on": "the CPU tests (tests/test_torch_parallel.py)"}
+            ok = ok and mode == "fsdp"
+            continue
+        entry = {"peak_mem_gib_per_rank": [r[mode]["peak_mem_gib"] for r in ranks],
+                 "launches_rank0": ranks[0][mode]["launches"],
+                 "loss_rel_err": max(_loss_rel_err(r[mode]["losses"], ref_losses)
+                                     for r in ranks)}
+        if mode != "fsdp":
+            flips = [t for r in ranks for t in r[mode]["ties"] if t[0]]
+            errs = ranks[0][mode]["grad_rel_err"]
+            entry.update(
+                ranks_agree=ranks[0][mode]["losses"] == ranks[1][mode]["losses"],
+                grad_rel_err=errs, relu_switched=sum(t[0] for t in flips),
+                relu_switched_max_rel=max((n / t for _, n, t, _ in flips), default=0.0))
+            ok = ok and (entry["loss_rel_err"] <= TWO_RANKS_LOSS_TOL and entry["ranks_agree"]
+                         and all(e <= (scalar_grad_tol if k in SCALAR_GROUPS else grad_tol)
+                                 for k, e in errs.items())
+                         and entry["relu_switched_max_rel"] <= tie_rel)
+        res[mode] = entry
+    res["ok"] = ok and not res["tf32"]
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("two ranks on the card disagree with the one-process step")
+    return res
+
+
+def _parallel_eval_child(mesh, cfg, ref_path: str):
+    """Rank ``mesh.rank`` of a data-parallel ``evaluate_batches`` on the
+    card, each sampler call taking the one-process run's selections."""
+    import torch
+
+    from hoisdf_torch.evaluate import Evaluator, evaluate_batches
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.parallel.mesh import rows_of
+    from hoisdf_torch.train import make_eval_step
+
+    ref = torch.load(ref_path, map_location="cpu", weights_only=False)
+    mano = ManoBuffers.from_model(make_synthetic_mano(0))
+    step = make_eval_step(cfg, build_biased_model(cfg), mano, device=mesh.device)
+    evaluator = Evaluator(cfg, mano, device=mesh.device) if mesh.rank == 0 else None
+    rows = rows_of(ref["batch_size"], mesh)
+    with recorded_selections([p[rows] for p in ref["selections"]]):
+        evaluate_batches(cfg, step, evaluator, ref["batches"], ref["batch_size"], mesh=mesh)
+    if evaluator is None:
+        return None
+    return {"results": {k: v / evaluator.total for k, v in evaluator.results.items()},
+            "total": evaluator.total}
+
+
+def parallel_eval_check(cfg, batch_size: int, device, workdir: str,
+                        n_batches: int = 2) -> dict:
+    """The parallel phase's ``eval`` line: ``evaluate_batches`` at two ranks
+    on the card (gloo, half of each batch a rank, the predictions gathered
+    to rank 0) against one rank here, f32, every sampler call taking this
+    run's selections: every result within PARALLEL_EVAL_TOL relative."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.evaluate import Evaluator, evaluate_batches
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.parallel.dryrun import run_ranks
+    from hoisdf_torch.train import make_eval_step
+
+    mano = ManoBuffers.from_model(make_synthetic_mano(0))
+    batches = _eval_batches(cfg, n_batches, batch_size)
+    evaluator = Evaluator(cfg, mano, device=device)
+    step = make_eval_step(cfg, build_biased_model(cfg), mano, device=device)
+    with recorded_selections() as seen:
+        evaluate_batches(cfg, step, evaluator, batches, batch_size)
+    want = {k: v / evaluator.total for k, v in evaluator.results.items()}
+    ref_path = os.path.join(workdir, "eval_ref.pt")
+    torch.save({"batches": batches, "batch_size": batch_size,
+                "selections": [s["points"] for s in seen]}, ref_path)
+    del step
+    torch.cuda.empty_cache()
+    got = run_ranks(_parallel_eval_child, 2, workdir, cfg, ref_path, backend="gloo",
+                    device=str(device), timeout=900)[0]
+    errs = _rel_errs(got["results"], want)
+    res = {"phase": "parallel", "check": "eval", "setting": cfg.setting, "batch": batch_size,
+           "batches": n_batches, "world": 2, "backend": "gloo", "shared_card": True,
+           "dtype": cfg.compute_dtype, "results_one_rank": want, "results_two_ranks":
+           got["results"], "total": got["total"], "max_rel_err": max(errs.values()),
+           "tol": PARALLEL_EVAL_TOL, "card": smi_line()}
+    res["ok"] = (got["total"] == evaluator.total == n_batches * batch_size
+                 and res["max_rel_err"] <= PARALLEL_EVAL_TOL
+                 and all(np.isfinite(v) for v in got["results"].values()))
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("data-parallel eval on the card disagrees with one rank")
+    return res
+
+
+def parallel_phase(device, batch_size: int = 22) -> dict:
+    """The data-parallel wrappers on the card: ``world1``, ``two_ranks`` and
+    ``eval`` lines (the dexycb preset at full width, f32, TF32 off, dropout
+    off, no jitter).  Each starts its ranks as child processes and fails on
+    a rank that fails."""
+    import tempfile
+
+    from hoisdf_torch.config import get_config
+
+    cfg = get_config("dexycb")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as workdir:
+        world1 = world1_check(cfg, batch_size, device, workdir)
+        two = two_ranks_check(cfg, batch_size, device, workdir)
+        ev = parallel_eval_check(get_config("dexycb", compute_dtype="float32"), batch_size,
+                                 device, workdir)
+    return {"world1": world1, "two_ranks": two, "eval": ev}
+
+
 def main() -> int:
     import torch
 
@@ -2405,6 +2863,8 @@ def main() -> int:
     if not eval_check["ok"]:
         raise AssertionError("the evaluator's results on the card and on the CPU disagree")
 
+    par = parallel_phase(device, batch_size=train_cfg.train_batch_size)
+
     launches, train_launches = serve_res["launches"], train_res["launches"]
     kernels = [
         {"name": "sdf_mlp", "route": "cuda", "source": "hoisdf_torch/csrc/sdf_mlp.cu",
@@ -2455,8 +2915,10 @@ def main() -> int:
          "ho3d_max_abs_err": max(bwd_ho3d["max_abs_err"], bwd_step_ho3d["max_abs_err"]),
          "ho3d_ms_clustered": bwd_ho3d["ms_clustered"], "ho3d_ms_uniform": bwd_ho3d["ms_uniform"]},
     ]
-    for entry in kernels:  # launches in each preset's train phase
+    for entry in kernels:  # launches in each preset's train phase and under each wrapper
         entry["launches_train"] = {s: r["launches"][entry["name"]] for s, r in trains.items()}
+        entry["launches_parallel"] = {m: par["world1"][m]["launches"][entry["name"]]
+                                      for m in PARALLEL_MODES}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -5,8 +5,10 @@ padding of the eval loop.
 The order is the JAX package's: each epoch's permutation is keyed on
 ``(seed, epoch)`` only, and a shard takes ``order[shard_id::num_shards]``
 trimmed to ``len // num_shards`` samples, so that every shard steps the same
-number of batches.  In one process the shard is ``(0, 1)``, the whole
-dataset.  A sample is ``dataset.__getitem__(index, epoch=epoch)``, so the
+number of batches.  The shard defaults to the data-parallel group's (rank,
+world size), resolved at first use (``jax.process_index()`` /
+``process_count()`` in the JAX package); without a group it is ``(0, 1)``,
+the whole dataset.  A sample is ``dataset.__getitem__(index, epoch=epoch)``, so the
 dataset's per-sample random streams do not depend on which worker draws it.
 
 Thread workers suit the PIL pipeline, whose decode and warps release the GIL.
@@ -21,18 +23,24 @@ import multiprocessing
 import queue
 import threading
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
 # The dataset of a process worker, set once by the pool's initializer in the
 # worker (never in the parent).
 _WORKER_DATASET = None
+# How long a process worker waits for the rest of its pool to start.
+WORKER_START_TIMEOUT_S = 600.0
 
 
-def _init_worker(dataset) -> None:
+def _init_worker(dataset, started) -> None:
+    """Keep the dataset, then wait until every worker of the pool holds its
+    own (``started`` is a barrier of the pool's size), so that the start-up
+    probe returns only once the whole pool can serve."""
     global _WORKER_DATASET
     _WORKER_DATASET = dataset
+    started.wait(WORKER_START_TIMEOUT_S)
 
 
 def _process_fetch(args) -> dict:
@@ -42,6 +50,15 @@ def _process_fetch(args) -> dict:
 
 def _process_probe(_) -> int:
     return 0
+
+
+def _default_shard() -> Tuple[int, int]:
+    """(rank, world size) of the data-parallel group; (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def pad_batch(d: Dict[str, np.ndarray], n: int) -> Dict[str, np.ndarray]:
@@ -62,8 +79,9 @@ class DataLoader:
 
     ``shuffle`` draws each epoch's order from ``(seed, epoch)``
     (:meth:`set_epoch` picks the epoch); ``drop_last`` drops a short tail
-    batch; ``shard_id`` / ``num_shards`` (both or neither; default ``(0,
-    1)``) take one shard of the order; ``worker_mode`` is ``"thread"`` or
+    batch; ``shard_id`` / ``num_shards`` (both or neither; default the
+    group's rank and size, ``(0, 1)`` without a group) take one shard of the
+    order; ``worker_mode`` is ``"thread"`` or
     ``"process"``; ``prefetch_batches`` batches are stacked ahead.  An error
     in a worker is raised in the consuming loop."""
 
@@ -73,9 +91,7 @@ class DataLoader:
                  worker_mode: str = "thread"):
         if (shard_id is None) != (num_shards is None):
             raise ValueError("pass both shard_id and num_shards, or neither")
-        if shard_id is None:
-            shard_id, num_shards = 0, 1
-        if not 0 <= shard_id < num_shards:
+        if shard_id is not None and not 0 <= shard_id < num_shards:
             raise ValueError(f"shard_id {shard_id} not in [0, {num_shards})")
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"worker_mode {worker_mode!r}")
@@ -86,17 +102,33 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch_batches = prefetch_batches
-        self.shard_id, self.num_shards = int(shard_id), int(num_shards)
+        # None: the group's (rank, world size), resolved at first use
+        self._shard = None if shard_id is None else (int(shard_id), int(num_shards))
         self.worker_mode = worker_mode
         self.epoch = 0
         self._pool = None
         if worker_mode == "process":
+            ctx = multiprocessing.get_context("spawn")
             self._pool = ProcessPoolExecutor(
-                self.num_workers, mp_context=multiprocessing.get_context("spawn"),
-                initializer=_init_worker, initargs=(dataset,))
-            # start every worker now, so that a dataset that fails to pickle
-            # or to import fails here and not inside the first epoch
+                self.num_workers, mp_context=ctx, initializer=_init_worker,
+                initargs=(dataset, ctx.Barrier(self.num_workers)))
+            # start every worker now (the initializer's barrier holds the
+            # probes until the last is up), so that a dataset that fails to
+            # pickle or to import fails here and not inside the first epoch
             list(self._pool.map(_process_probe, range(self.num_workers)))
+
+    @property
+    def shard_id(self) -> int:
+        return self._resolve_shard()[0]
+
+    @property
+    def num_shards(self) -> int:
+        return self._resolve_shard()[1]
+
+    def _resolve_shard(self) -> Tuple[int, int]:
+        if self._shard is None:
+            self._shard = _default_shard()
+        return self._shard
 
     def close(self) -> None:
         """Shut the process workers down (a no-op for thread workers)."""

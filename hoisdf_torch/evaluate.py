@@ -12,7 +12,11 @@ Metrics run on the evaluator's device, one host transfer per batch; the
 accumulation is host numpy.  ``main`` evaluates on one card (or the CPU with
 ``--cpu``) and keeps a one-batch lookahead: batch i+1's eval step is enqueued
 before batch i's metrics, which run on a side stream behind an event, so
-their host transfer does not wait for batch i+1.
+their host transfer does not wait for batch i+1.  Under ``torchrun`` it
+evaluates data parallel, as the JAX package's over its devices: the batch is
+rounded down to a multiple of the world size, every rank reads every batch
+and runs the eval step on its rows, and the predictions are gathered as
+host copies to rank 0, which alone runs the metrics and writes the results.
 
 A dataset's eval split (DexYCB's test split, HO3D's evaluation split, which
 also writes the codalab ``pred_mano.json``) is read whole, in order, and its
@@ -22,6 +26,7 @@ otherwise; ``--synthetic`` takes the tiny model on synthetic batches.
 
 Usage:
     python -m hoisdf_torch.evaluate --setting dexycb --synthetic [--cpu]
+    torchrun --nproc_per_node=N -m hoisdf_torch.evaluate --setting dexycb --ckpt DIR ...
     python -m hoisdf_torch.evaluate --setting ho3d --torch-ckpt snapshot_69.pth.tar \\
         --cfg data_dir=... --cfg fast_data_dir=... --cfg object_models_dir=... \\
         --cfg simple_object_models_dir=... --batch-size 22 --out results/
@@ -50,6 +55,7 @@ from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.models.mano_head import mano_head_gt
 from hoisdf_torch.ops import wire
 from hoisdf_torch.ops.ik import ik_solver_mano
+from hoisdf_torch.parallel.mesh import Mesh, init_distributed, make_mesh, shard_batch
 from hoisdf_torch.train import disable_tf32, make_eval_step, resolve_device
 from hoisdf_torch.utils import checkpoint as ckpt_util
 
@@ -212,22 +218,49 @@ class Evaluator:
         return path
 
 
-def evaluate_batches(cfg: Config, eval_step, evaluator: Evaluator,
+def _gather_rows(preds: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, np.ndarray]:
+    """Every rank's rows of the predictions, in rank order, on rank 0 as
+    numpy (host copies: gloo gathers no CUDA tensors); {} elsewhere."""
+    import torch.distributed as dist
+
+    parts = [None] * mesh.world
+    dist.all_gather_object(parts, _to_host(preds))
+    if mesh.rank:
+        return {}
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def evaluate_batches(cfg: Config, eval_step, evaluator: Optional[Evaluator],
                      batches: Iterable[Tuple[Dict, Dict, Optional[np.ndarray], int]],
-                     batch_size: int, on_first_batch: Optional[Callable] = None) -> None:
+                     batch_size: int, on_first_batch: Optional[Callable] = None,
+                     mesh: Optional[Mesh] = None) -> None:
     """Feed every batch ``(inputs, targets, templates, valid)`` through
     ``eval_step`` and ``evaluator``, with a one-batch lookahead: batch i+1's
     step is enqueued before batch i's metrics run.  On the card the metrics
     run on a side stream behind an event recorded after their step, so their
     host transfer waits for that step only.  Rows past ``valid`` (tail-batch
     padding) are dropped before the metrics; a batch without templates skips
-    them.  ``on_first_batch(preds, targets)`` sees the first batch, trimmed."""
-    cuda = evaluator.device.type == "cuda"
-    side = torch.cuda.Stream(evaluator.device) if cuda else None
+    them.  ``on_first_batch(preds, targets)`` sees the first batch, trimmed.
+
+    With a ``mesh`` of more than one rank every rank passes every (global)
+    batch: it runs the step on its rows (``parallel.mesh.shard_batch``), and
+    rank 0 gathers the predictions and alone feeds its ``evaluator`` (None
+    on the other ranks) and the hook."""
+    parallel = mesh is not None and mesh.world > 1
+    device = mesh.device if parallel else evaluator.device
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
     hook = on_first_batch
 
     def feed(preds, targets, inputs, templates, valid, ready):
         nonlocal hook
+        if parallel:
+            with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
+                if cuda:
+                    side.wait_event(ready)
+                preds = _gather_rows(preds, mesh)
+            if mesh.rank:
+                return
         if valid < batch_size:
             preds, targets, inputs = (trim_batch(preds, valid), trim_batch(targets, valid),
                                       trim_batch(inputs, valid))
@@ -246,6 +279,8 @@ def evaluate_batches(cfg: Config, eval_step, evaluator: Evaluator,
         device_inputs = {k: v for k, v in inputs.items() if k not in ("obj_cls", "obj_valid")}
         if cfg.transfer_dtype == "uint8":  # metrics keep the f32 inputs
             device_inputs = wire.encode_inputs(device_inputs)
+        if parallel:
+            device_inputs = shard_batch(device_inputs, mesh)
         preds = eval_step(device_inputs)
         ready = None
         if cuda:
@@ -329,7 +364,12 @@ def main(argv=None) -> str:
     if args.mano:
         overrides["mano_model_path"] = args.mano
     cfg = get_config(args.setting, **overrides)
-    device = torch.device("cpu" if args.cpu else "cuda")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        init_distributed(cpu=args.cpu)
+    mesh = make_mesh("cpu" if args.cpu else None)
+    device = mesh.device
+    if args.batch_size % mesh.world:  # every rank takes as many rows
+        args.batch_size = max(mesh.world, args.batch_size - args.batch_size % mesh.world)
 
     mano_model = (load_mano_npz(cfg.mano_model_path) if cfg.mano_model_path
                   else make_synthetic_mano(0))
@@ -340,10 +380,11 @@ def main(argv=None) -> str:
             raise SystemExit("evaluate: a dataset's eval needs --cfg "
                              "simple_object_models_dir=<the simplified YCB meshes>")
         mano_left = load_mano_npz(cfg.mano_left_path) if cfg.mano_left_path else None
-        # the whole split, in order, the tail kept (common/base.py:163-169)
+        # the whole split, in order, the tail kept (common/base.py:163-169), on
+        # every rank: each takes its rows of each batch
         loader = DataLoader(open_dataset(cfg, "test", mano_model, mano_left), args.batch_size,
-                            num_workers=cfg.num_data_workers, drop_last=False,
-                            worker_mode=cfg.data_worker_mode)
+                            num_workers=cfg.num_data_workers, drop_last=False, shard_id=0,
+                            num_shards=1, worker_mode=cfg.data_worker_mode)
     model = build_model(cfg)
     if args.torch_ckpt:
         model.load_state_dict(ckpt_util.load_original_state(args.torch_ckpt, model),
@@ -354,17 +395,20 @@ def main(argv=None) -> str:
             model.load_state_dict(network, strict=True)
 
     eval_step = make_eval_step(cfg, model, mano, device=device)
-    evaluator = Evaluator(cfg, mano, device=device)
+    evaluator = Evaluator(cfg, mano, device=device) if mesh.rank == 0 else None
     if loader is None:
         batches = synthetic_batches(cfg, args.batches, args.batch_size)
     else:
         batches = dataset_batches(cfg, loader, args.batch_size, cfg.simple_object_models_dir)
     try:
-        evaluate_batches(cfg, eval_step, evaluator, batches, args.batch_size)
+        evaluate_batches(cfg, eval_step, evaluator, batches, args.batch_size, mesh=mesh)
     finally:
         if loader is not None:
             loader.close()
 
+    path = os.path.join(args.out, "results.txt")
+    if evaluator is None:  # rank 0 writes
+        return path
     os.makedirs(args.out, exist_ok=True)
     path = evaluator.write_results(args.out)
     if cfg.dataset == "ho3d" and loader is not None:

@@ -1,15 +1,36 @@
 """Training losses (``hoisdf_tpu/losses.py``): pure functions returning
 scalars, and the train loop's weighting (``weighted_total``).  The vote loss
-also returns the softmax-aggregated hand joints."""
+also returns the softmax-aggregated hand joints.  Under a data-parallel group
+the two losses normalised by a data-dependent count divide by the global
+count (:func:`global_count`); the plain means need nothing, since every rank
+holds as many rows."""
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from hoisdf_torch.config import Config
+from hoisdf_torch.parallel.mesh import world_size
+
+
+def global_count(count: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A data-dependent count summed over the ranks of a data-parallel group
+    (without gradient), and the world size; ``(count, 1)`` without one.
+
+    The JAX package's step sees the global batch, so a loss normalised by
+    such a count divides the global sum by the global count.  A rank's term
+    ``world * local sum / global count`` makes the mean over ranks of the
+    terms, and of their gradients (what DDP averages), that global ratio."""
+    world = world_size()
+    if world == 1:
+        return count, 1
+    count = count.detach().float().clone()
+    dist.all_reduce(count)
+    return count, world
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -59,8 +80,9 @@ def joint_vote_loss(cfg: Config, hand_points: torch.Tensor, hand_off: torch.Tens
     reg = smooth_l1(votes * 1000.0, gt_b.expand(votes.shape)) * cls_gt[None, ..., None]
     # the masked sum over points, joints and the 3 coordinates, over the
     # membership count, then the mean over layers and coordinates (/ 3)
-    loss_joint_3d = reg.sum(dim=(1, 2, 3, 4)) / torch.clamp(cls_gt.sum(), min=1.0)
-    loss_joint_3d = loss_joint_3d.mean() / 3.0
+    count, world = global_count(cls_gt.sum())
+    loss_joint_3d = reg.sum(dim=(1, 2, 3, 4)) / torch.clamp(count, min=1.0)
+    loss_joint_3d = world * loss_joint_3d.mean() / 3.0
 
     loss_joint_cls = torch.mean(bce_with_logits(hand_cls, cls_gt[None].expand(hand_cls.shape)))
 
@@ -104,8 +126,8 @@ def sdf_part_classifier_loss(logits: torch.Tensor, labels: torch.Tensor) -> torc
     safe = torch.clamp(labels, min=0).long()
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    denom = torch.clamp(valid.sum(), min=1)
-    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
+    count, world = global_count(valid.sum())
+    return world * torch.where(valid, nll, torch.zeros_like(nll)).sum() / torch.clamp(count, min=1)
 
 
 def weighted_total(cfg: Config, losses: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -10,6 +10,7 @@ from hoisdf_torch.ops.grid_sample import pixels_to_grid, project_points
 from hoisdf_torch.ops.kernels.sdf_mlp import fold_weight_norm, prepare_weights, sdf_mlp
 from hoisdf_torch.ops.nerf import nerf_positional_encoding
 from hoisdf_torch.ops.point_sampling import scaled_to_cam, sdf_guided_sample_hierarchical
+from hoisdf_torch.parallel.zero import unsharded
 
 
 @torch.no_grad()
@@ -36,8 +37,7 @@ def paired_sdf_infer(model, pyramid, mano_root, obj_center, cam_intr, bbox_hand,
             f"per-field hier_levels_obj={c.hier_levels_obj!r}; set hier_levels_obj=None "
             "(or equal to hier_levels) to use the paired sampler")
     b, dev = mano_root.shape[0], mano_root.device
-    weights = [prepare_weights(fold_weight_norm(dec), model.compute_dtype)
-               for dec in (model.hand_sdf_decoder, model.obj_sdf_decoder)]
+    decoders = (model.hand_sdf_decoder, model.obj_sdf_decoder)
     centers = torch.stack([mano_root, obj_center], dim=1).reshape(2 * b, 3)
     bboxes = torch.stack([bbox_hand, bbox_obj], dim=1).reshape(2 * b, 4)
     scales = torch.stack([torch.full((b,), c.hand_sdf_scale, device=dev),
@@ -56,9 +56,12 @@ def paired_sdf_infer(model, pyramid, mano_root, obj_center, cam_intr, bbox_hand,
                            dim=1).reshape(2 * b, m)
 
     k = max(c.num_samp_hand, c.num_samp_obj)
-    points, sdf = sdf_guided_sample_hierarchical(
-        sdf_fn, centers, cam2, bboxes, sdf_scale=scales, num_points=k, bins_n=c.bins_n,
-        levels=c.hier_levels, clamp=c.clamping_distance)
+    with unsharded(*decoders):  # the kernel reads their weights (FSDP: gathered)
+        weights = [prepare_weights(fold_weight_norm(dec), model.compute_dtype)
+                   for dec in decoders]
+        points, sdf = sdf_guided_sample_hierarchical(
+            sdf_fn, centers, cam2, bboxes, sdf_scale=scales, num_points=k, bins_n=c.bins_n,
+            levels=c.hier_levels, clamp=c.clamping_distance)
     points, sdf = points.reshape(b, 2, k, 3), sdf.reshape(b, 2, k, 1)
     out = []
     for g, n in enumerate((c.num_samp_hand, c.num_samp_obj)):

@@ -63,6 +63,7 @@ from hoisdf_torch.ops.point_sampling import (
     sdf_guided_sample_coarse2fine,
     sdf_guided_sample_hierarchical,
 )
+from hoisdf_torch.parallel.zero import unsharded
 
 
 class MLP(nn.Module):
@@ -193,7 +194,6 @@ class HOISDF(nn.Module):
         values are clamped."""
         c = self.cfg
         decoder = self.hand_sdf_decoder if which == "hand" else self.obj_sdf_decoder
-        weights = prepare_weights(fold_weight_norm(decoder), self.compute_dtype)
 
         def sdf_fn(pts):  # [B, M, 3] -> [B, M]
             flat = self._sdf_decoder_inputs(pyramid, pts, center, cam_intr, sdf_scale,
@@ -202,19 +202,23 @@ class HOISDF(nn.Module):
 
         common = dict(sdf_scale=sdf_scale, num_points=num_points, bins_n=c.bins_n,
                       clamp=c.clamping_distance)
-        if c.sdf_infer_mode == "coarse2fine":
-            points, sdf = sdf_guided_sample_coarse2fine(
-                sdf_fn, center, cam_intr, bbox, coarse_factor=c.bins_n // c.coarse_bins,
-                keep_cells=c.coarse_keep_cells, **common)
-        elif c.sdf_infer_mode == "hier":
-            levels = c.hier_levels
-            if which == "obj" and c.hier_levels_obj is not None:
-                levels = c.hier_levels_obj
-            points, sdf = sdf_guided_sample_hierarchical(
-                sdf_fn, center, cam_intr, bbox, levels=levels, **common)
-        else:
-            points, sdf = sdf_guided_sample(
-                sdf_fn, center, cam_intr, bbox, chunk=c.sdf_infer_chunk, **common)
+        # the kernel reads the decoder's weights outside its forward: under
+        # FSDP they are gathered for the whole sampler
+        with unsharded(decoder):
+            weights = prepare_weights(fold_weight_norm(decoder), self.compute_dtype)
+            if c.sdf_infer_mode == "coarse2fine":
+                points, sdf = sdf_guided_sample_coarse2fine(
+                    sdf_fn, center, cam_intr, bbox, coarse_factor=c.bins_n // c.coarse_bins,
+                    keep_cells=c.coarse_keep_cells, **common)
+            elif c.sdf_infer_mode == "hier":
+                levels = c.hier_levels
+                if which == "obj" and c.hier_levels_obj is not None:
+                    levels = c.hier_levels_obj
+                points, sdf = sdf_guided_sample_hierarchical(
+                    sdf_fn, center, cam_intr, bbox, levels=levels, **common)
+            else:
+                points, sdf = sdf_guided_sample(
+                    sdf_fn, center, cam_intr, bbox, chunk=c.sdf_infer_chunk, **common)
         return points, sdf, nerf_positional_encoding(points, c.nerf_num_freqs)
 
     def token_and_cross_queries(self, pyramid, hand_points, obj_points, mano_root,

@@ -33,6 +33,8 @@ from hoisdf_torch.models.initializers import apply_reference_init
 from hoisdf_torch.models.mano_head import mano_head_gt, mano_head_pred
 from hoisdf_torch.ops import wire
 from hoisdf_torch.ops.heatmap import render_gaussian_heatmap
+from hoisdf_torch.parallel.mesh import Mesh, mean_over_ranks, world_size
+from hoisdf_torch.parallel.zero import replicate, shard_state
 
 
 def resolve_device(device) -> torch.device:
@@ -110,25 +112,57 @@ def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.AdamW:
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer and the count of optimizer steps taken."""
+    """The model, its optimizer and the count of optimizer steps taken.
+    Under a process group ``model`` is the data-parallel model (DDP, or the
+    model itself sharded by FSDP) and ``optimizer`` may be ZeRO-1's;
+    :attr:`module` is the bare model."""
 
-    model: HOISDF
-    optimizer: torch.optim.AdamW
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
     steps_per_epoch: int
     step: int = 0
+    mesh: Optional[Mesh] = None
+    zero: str = "off"
+
+    @property
+    def module(self) -> HOISDF:
+        """The bare model, for the eval step and the snapshots."""
+        if isinstance(self.model, torch.nn.parallel.DistributedDataParallel):
+            return self.model.module
+        return self.model
+
+
+ZERO_MODES = ("off", "zero1", "fsdp")
 
 
 def create_train_state(cfg: Config, model: HOISDF, steps_per_epoch: int = 1000, *,
-                       device="cuda") -> TrainState:
+                       device="cuda", mesh: Optional[Mesh] = None,
+                       zero: str = "off") -> TrainState:
     """Move ``model`` to ``device`` and give it its optimizer.  With
     ``cfg.reference_init`` the decoder, SDF decoders and transformers are
-    first re-drawn by the original's train-mode init, from ``cfg.seed``."""
+    first re-drawn by the original's train-mode init, from ``cfg.seed``.
+
+    With a ``mesh`` that holds a process group the state is data parallel:
+    the model in DDP (``zero="off"``), in DDP with ZeRO-1's optimizer
+    (``"zero1"``) or sharded by FSDP (``"fsdp"``), as
+    ``parallel/zero.py`` says.  Every rank must start from the same
+    weights."""
+    if zero not in ZERO_MODES:
+        raise ValueError(f"zero={zero!r}; one of {ZERO_MODES}")
     dev = resolve_device(device)
     disable_tf32()
     if cfg.reference_init:
         apply_reference_init(model, torch.Generator().manual_seed(cfg.seed + 3))
     model.to(dev)
-    return TrainState(model, make_optimizer(cfg, model), steps_per_epoch)
+    state = TrainState(model, make_optimizer(cfg, model), steps_per_epoch, mesh=mesh)
+    if mesh is None or not mesh.distributed:
+        if zero != "off":
+            raise ValueError(f"zero={zero!r} needs a process group")
+        return state
+    if zero == "off":
+        state.model = replicate(model, mesh)
+        return state
+    return shard_state(state, mesh, shard_params=zero == "fsdp")
 
 
 # ---- losses ----------------------------------------------------------------
@@ -192,7 +226,15 @@ def make_train_step(cfg: Config, mano_buffers: ManoBuffers, *, device="cuda"
     dropout masks), back-propagates the weighted total, takes one AdamW step
     at the step's learning rate and returns ``(state, losses)``, the losses
     (with ``total``) as detached scalars on the device.  The state is updated
-    in place."""
+    in place.
+
+    Data parallel (a state from ``create_train_state(..., mesh=...)``), each
+    rank passes its rows of the global batch, on its own device, and a
+    generator seeded for its rank (``parallel.mesh.rank_seed``); every rank
+    must take the same branch.  The step then computes the JAX package's
+    global-batch step: BN on the global statistics, the count-normalised
+    losses over the global counts, the gradients averaged over the ranks,
+    and it returns the global batch's losses on every rank."""
     dev = resolve_device(device)
     disable_tf32()
     mano = mano_buffers.to(dev)
@@ -216,6 +258,8 @@ def make_train_step(cfg: Config, mano_buffers: ManoBuffers, *, device="cuda"
         state.step += 1
         losses = {k: v.detach() for k, v in losses.items()}
         losses["total"] = total.detach()
+        if world_size() > 1:  # the global batch's losses, on every rank
+            losses = dict(zip(losses, mean_over_ranks(torch.stack(list(losses.values())))))
         return state, losses
 
     return train_step

@@ -1,5 +1,6 @@
 """Training entry point of the port (``hoisdf_tpu/train_loop.py``), in one
-process, on a dataset or on synthetic batches.
+process or data parallel over ranks that ``torchrun`` starts, on a dataset or
+on synthetic batches.
 
 The epoch loop of the original's ``main/train.py``: the host-side branch gate
 (presampled or field-guided points) and jitter distance per step, the stepped
@@ -19,14 +20,29 @@ config through the port's loader (``num_data_workers`` workers of
 has the preset's full size unless ``--cfg`` overrides say otherwise;
 ``--synthetic`` takes the tiny model.
 
+Data parallel: under ``torchrun`` (``WORLD_SIZE`` > 1, or ``--multihost``)
+every rank starts the process group from the environment, runs on
+``cuda:{LOCAL_RANK}`` (or the CPU with ``--cpu``, on gloo) and takes
+``train_batch_size`` rows of a global batch of ``train_batch_size x world``:
+its loader shard, or its rows of each synthetic global batch.  The step has
+the JAX package's global-batch semantics (``train.make_train_step``), with
+the state in DDP or sharded by ``--zero`` (``parallel/zero.py``).  Every
+rank seeds its generator for its rank and draws the branch gate from the
+same stream.  Rank 0 alone writes the logs, ``cfg.txt``, the scalars, the
+debug images and the snapshots (gathered whole, in the one-process layout);
+the synthetic eval at a snapshot runs on every rank, the dataset's only in
+one process, as the JAX package's.
+
 Not ported yet: ``--backbone-init`` (the ImageNet graft, which needs converted
-torchvision weights), ``--zero`` and ``--multihost``.
+torchvision weights).
 
 Usage:
     python -m hoisdf_torch.train_loop --setting dexycb --run_dir_name demo \\
         --synthetic --end_epoch 2 --iters-per-epoch 4 --batch-size 2 [--cpu]
     python -m hoisdf_torch.train_loop --setting ho3d --cfg data_dir=... \\
         --cfg fast_data_dir=... --cfg annotation_dir=...
+    torchrun --nproc_per_node=N -m hoisdf_torch.train_loop --setting dexycb \\
+        [--zero zero1|fsdp] --cfg data_dir=... --cfg annotation_dir=...
 """
 
 from __future__ import annotations
@@ -35,6 +51,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import logging
 import os
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -49,8 +66,9 @@ from hoisdf_torch.mano.layer import ManoBuffers
 from hoisdf_torch.mano.model import load_mano_npz, make_synthetic_mano
 from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.ops import wire
-from hoisdf_torch.train import (create_train_state, make_eval_step, make_train_step,
-                                presample_gate)
+from hoisdf_torch.parallel.mesh import init_distributed, make_mesh, rank_seed, shard_batch
+from hoisdf_torch.train import (ZERO_MODES, create_train_state, make_eval_step,
+                                make_train_step, presample_gate)
 from hoisdf_torch.utils import checkpoint as ckpt_util
 from hoisdf_torch.utils.logger import colorlogger
 from hoisdf_torch.utils.timer import Timer
@@ -146,6 +164,16 @@ def parse_args(argv=None):
                         "torchvision weights")
     p.add_argument("--iters-per-epoch", type=int, default=None)
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--zero", choices=ZERO_MODES, default="off",
+                   help="shard the AdamW moments (zero1: ZeroRedundancyOptimizer) or the "
+                        "moments and the parameters (fsdp: FSDP2's fully_shard) over the "
+                        "data-parallel ranks (parallel/zero.py); 'off' replicates them in "
+                        "DDP like the reference's DataParallel; needs torchrun")
+    p.add_argument("--multihost", action="store_true",
+                   help="start the process group from torchrun's environment before any "
+                        "use of the card, and fail without it (ranks on several hosts: "
+                        "torchrun --nnodes ... --rdzv-endpoint ...); a run with WORLD_SIZE "
+                        "above 1 starts it anyway")
     p.add_argument("--cfg", action="append", default=[], metavar="KEY=VALUE",
                    help="config field override (repeatable); VALUE is JSON with a "
                         "plain-string fallback")
@@ -165,18 +193,30 @@ def main(argv=None) -> None:
             overrides[key] = value
     overrides.update(parse_cfg_overrides(args.cfg))
     cfg = get_config(args.setting, **overrides)
-    device = torch.device("cpu" if args.cpu else "cuda")
+    if args.multihost or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        init_distributed(cpu=args.cpu)  # before any use of the card
+    mesh = make_mesh("cpu" if args.cpu else None)
+    if args.zero != "off" and not mesh.distributed:
+        raise ValueError(f"--zero {args.zero} needs a process group: start the ranks with "
+                         "torchrun")
+    device, rank0 = mesh.device, mesh.rank == 0
 
     out_root = os.path.join(cfg.output_dir, args.run_dir_name)
     log_dir = os.path.join(out_root, "log")
     model_dir = os.path.join(out_root, "model_dump")
-    os.makedirs(model_dir, exist_ok=True)
-    logger = colorlogger(log_dir, "train_logs.txt")
-    writer = ScalarWriter(os.path.join(out_root, "tensorboard"))
-    with open(os.path.join(log_dir, "cfg.txt"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
-    with open(os.path.join(log_dir, "args.txt"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    writer = None
+    if rank0:
+        os.makedirs(model_dir, exist_ok=True)
+        logger = colorlogger(log_dir, "train_logs.txt")
+        writer = ScalarWriter(os.path.join(out_root, "tensorboard"))
+        with open(os.path.join(log_dir, "cfg.txt"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+        with open(os.path.join(log_dir, "args.txt"), "w") as f:
+            json.dump(vars(args), f, indent=2)
+    else:  # the other ranks log nothing
+        logger = logging.getLogger(f"hoisdf_torch.train_loop.rank{mesh.rank}")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
 
     mano_model = (load_mano_npz(cfg.mano_model_path) if cfg.mano_model_path
                   else make_synthetic_mano(0))
@@ -187,11 +227,11 @@ def main(argv=None) -> None:
     if args.synthetic:
         iters_per_epoch = args.iters_per_epoch or 8
 
-        def batches(epoch):
+        def batches(epoch):  # the rank's rows of each global batch
             for i in range(iters_per_epoch):
-                yield synthetic_batch(cfg, cfg.train_batch_size, seed=epoch * 10000 + i,
-                                      train=True)
-    else:
+                yield shard_batch(synthetic_batch(cfg, cfg.train_batch_size * mesh.world,
+                                                  seed=epoch * 10000 + i, train=True), mesh)
+    else:  # the loader's shard is the rank's (data/loader.py)
         loader = DataLoader(open_dataset(cfg, "train", mano_model, mano_left, seed=cfg.seed),
                             cfg.train_batch_size, shuffle=True,
                             num_workers=cfg.num_data_workers, drop_last=True, seed=cfg.seed,
@@ -203,14 +243,19 @@ def main(argv=None) -> None:
             loader.set_epoch(epoch)
             yield from loader
     eval_loader = None
-    if not args.synthetic and cfg.dataset == "dexycb" and cfg.annotation_dir:
-        # the whole test split, in order, the tail kept (common/base.py:205-211)
+    if not args.synthetic and cfg.dataset == "dexycb" and cfg.annotation_dir and mesh.world == 1:
+        # the whole test split, in order, the tail kept (common/base.py:205-211); data
+        # parallel, evaluate a snapshot with evaluate.main instead, as the JAX package
         eval_loader = DataLoader(open_dataset(cfg, "test", mano_model, mano_left, seed=cfg.seed),
                                  cfg.eval_batch_size, num_workers=cfg.num_data_workers,
-                                 drop_last=False, worker_mode=cfg.data_worker_mode)
+                                 drop_last=False, shard_id=0, num_shards=1,
+                                 worker_mode=cfg.data_worker_mode)
         loaders.append(eval_loader)
 
-    state = create_train_state(cfg, build_model(cfg, cfg.seed), iters_per_epoch, device=device)
+    state = create_train_state(cfg, build_model(cfg, cfg.seed), iters_per_epoch, device=device,
+                               mesh=mesh, zero=args.zero)
+    if args.zero != "off":
+        logger.info(f"sharded train state over {mesh.world} ranks ({args.zero})")
     start_epoch = 0
     if args.continue_train:
         resumed = ckpt_util.restore_snapshot(model_dir, state)
@@ -218,9 +263,9 @@ def main(argv=None) -> None:
             start_epoch = resumed + 1
             logger.info(f"resumed from epoch {resumed}")
     train_step = make_train_step(cfg, mano, device=device)
-    eval_step = make_eval_step(cfg, state.model, mano, device=device)
-    generator = torch.Generator(device=device).manual_seed(cfg.seed + 1)
-    host_rng = np.random.default_rng(cfg.seed + 2)
+    eval_step = make_eval_step(cfg, state.module, mano, device=device)
+    generator = torch.Generator(device=device).manual_seed(rank_seed(cfg.seed + 1, mesh.rank))
+    host_rng = np.random.default_rng(cfg.seed + 2)  # the branch gate: one stream on every rank
     tot_timer, step_timer = Timer(), Timer()
     loss_window: "collections.deque" = collections.deque()
     total = float("nan")
@@ -236,18 +281,21 @@ def main(argv=None) -> None:
         logger.error(f"non-finite loss at epoch {l_epoch} itr {l_itr} "
                      f"(read {LOSS_LAG} steps late): {crash}")
         crash_dir = os.path.join(model_dir, "crash_postupdate_diagnostic")
-        ckpt_util.save_snapshot(crash_dir, l_epoch, state)
-        with open(os.path.join(crash_dir, "CRASH.json"), "w") as f:
-            json.dump({"epoch": l_epoch, "itr": l_itr, "losses": crash,
-                       "note": f"state saved after the update, up to {LOSS_LAG} steps past "
-                               "the fault; resume from the last regular snapshot"}, f, indent=2)
+        ckpt_util.save_snapshot(crash_dir, l_epoch, state)  # every rank: the losses are global
+        if rank0:
+            with open(os.path.join(crash_dir, "CRASH.json"), "w") as f:
+                json.dump({"epoch": l_epoch, "itr": l_itr, "losses": crash,
+                           "note": f"state saved after the update, up to {LOSS_LAG} steps "
+                                   "past the fault; resume from the last regular snapshot"},
+                          f, indent=2)
         raise FloatingPointError(f"non-finite training loss: {crash}")
 
     def evaluate_snapshot() -> None:
         state.model.eval()  # the next train step puts it back in train mode
-        if args.synthetic:
+        if args.synthetic:  # on every rank: an FSDP model gathers its shards
             preds, targets = eval_synthetic(cfg, eval_step, mano, device)
-            dump_debug_images(debug_dir, state.step, preds, targets, writer)
+            if rank0:
+                dump_debug_images(debug_dir, state.step, preds, targets, writer)
         elif eval_loader is not None:
             ev = Evaluator(cfg, mano, device=device)
             batches = dataset_batches(cfg, eval_loader, cfg.eval_batch_size,
@@ -275,7 +323,7 @@ def main(argv=None) -> None:
                 if len(loss_window) > LOSS_LAG:
                     total = check_finite(*loss_window.popleft())
                 step_timer.toc()
-                if itr % 400 == 0:
+                if itr % 400 == 0 and writer is not None:
                     writer.add_scalars(state.step, {f"train_{k}": v for k, v in losses.items()})
                 tot_timer.toc()
                 logger.info(
@@ -291,7 +339,8 @@ def main(argv=None) -> None:
                 logger.info(f"snapshot saved at epoch {epoch}")
                 evaluate_snapshot()
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
         for loader in loaders:
             loader.close()
     logger.info("training done")

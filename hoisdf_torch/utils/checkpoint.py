@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from hoisdf_torch.parallel.zero import full_state_dicts, load_full_state
+
 _SNAP_RE = re.compile(r"snapshot_(\d+)\.pth\.tar$")
 _PREFIX = "module."
 
@@ -26,13 +28,18 @@ def snapshot_path(model_dir: str, epoch: int) -> str:
 
 def save_snapshot(model_dir: str, epoch: int, state) -> str:
     """Write ``state``'s (a ``train.TrainState``) model, optimizer and step
-    as snapshot ``epoch``; returns the path."""
-    os.makedirs(model_dir, exist_ok=True)
+    as snapshot ``epoch``; returns the path.  A data-parallel state is
+    written in the one-process layout, whole (``parallel/zero.py``): every
+    rank calls this, and rank 0 alone writes."""
     path = snapshot_path(model_dir, epoch)
-    network = {_PREFIX + k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    network, optimizer = full_state_dicts(state)
+    if network is None:  # not rank 0
+        return path
+    os.makedirs(model_dir, exist_ok=True)
+    network = {_PREFIX + k: v.detach().cpu() for k, v in network.items()}
     tmp = f"{path}.tmp.{os.getpid()}"
-    torch.save({"epoch": epoch, "network": network,
-                "optimizer": state.optimizer.state_dict(), "step": state.step}, tmp)
+    torch.save({"epoch": epoch, "network": network, "optimizer": optimizer,
+                "step": state.step}, tmp)
     os.replace(tmp, path)
     return path
 
@@ -47,16 +54,14 @@ def latest_epoch(model_dir: str) -> Optional[int]:
 def restore_snapshot(model_dir: str, state, epoch: Optional[int] = None) -> Optional[int]:
     """Load snapshot ``epoch`` (default: the latest) into ``state`` in place:
     model (strict), optimizer and step.  Returns the snapshot's epoch, or
-    None when the directory holds none."""
+    None when the directory holds none.  A snapshot of any mode and world
+    size loads into any other; under a group every rank calls this."""
     if epoch is None:
         epoch = latest_epoch(model_dir)
         if epoch is None:
             return None
     snap = torch.load(snapshot_path(model_dir, epoch), map_location="cpu", weights_only=True)
-    network = {k[len(_PREFIX):] if k.startswith(_PREFIX) else k: v
-               for k, v in snap["network"].items()}
-    state.model.load_state_dict(network, strict=True)
-    state.optimizer.load_state_dict(snap["optimizer"])
+    load_full_state(state, _strip_prefix(snap["network"]), snap["optimizer"])
     state.step = int(snap["step"])
     return int(snap["epoch"])
 

@@ -31,11 +31,12 @@ def test_port_imports_no_jax():
                    "data/ho3d.py", "data/loader.py", "data/dexycb.py", "data/transforms.py",
                    "data/image_io.py", "data/meshes.py", "predictor.py",
                    "native/__init__.py", "native/build.py", "ops/warp.py",
-                   "models/experimental.py", "ops/selection_quality.py"):
+                   "models/experimental.py", "ops/selection_quality.py",
+                   "parallel/mesh.py", "parallel/zero.py", "parallel/dryrun.py"):
         assert f"hoisdf_torch/{module}" in names, module
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     fixtures = ROOT / "tests" / "torch_data_fixtures.py"
-    stdlib = {"__future__", "json", "os", "pickle", "typing"}
+    stdlib = {"__future__", "json", "os", "pickle", "time", "typing"}
     assert {n.split(".")[0] for n in _imports(fixtures)} - stdlib == {"numpy", "PIL"}

@@ -5,6 +5,7 @@ process workers start by spawn, the JAX package's fork); errors reach the
 consumer and an abandoned epoch releases its producer."""
 
 import gc
+import os
 import threading
 import time
 
@@ -14,7 +15,7 @@ import pytest
 from hoisdf_torch.data.loader import DataLoader, pad_batch, trim_batch
 from hoisdf_tpu.data import loader as J
 
-from torch_data_fixtures import ToyDataset, assert_samples_equal
+from torch_data_fixtures import StartMarkingDataset, ToyDataset, assert_samples_equal
 
 
 def _epochs(loader, epochs=(0, 1)):
@@ -55,6 +56,23 @@ def test_process_workers_equal_jax_and_thread_workers():
             assert_samples_equal(g, t)
     with pytest.raises(RuntimeError, match="close"):
         list(port)
+
+
+def test_every_process_worker_has_started_when_the_loader_returns(tmp_path):
+    """The start-up probe returns only once every worker holds its dataset
+    (each worker's copy writes a file when it is unpickled there), and the
+    batches are those of thread workers."""
+    marks = tmp_path / "marks"
+    marks.mkdir()
+    kw = dict(batch_size=4, shuffle=True, seed=3, num_workers=4, drop_last=True)
+    with DataLoader(StartMarkingDataset(str(marks)), worker_mode="process", **kw) as dl:
+        assert len([m for m in os.listdir(marks) if m.startswith("started")]) == 4
+        got = _epochs(dl)
+    want = _epochs(DataLoader(ToyDataset(), worker_mode="thread", **kw))
+    for g_epoch, w_epoch in zip(got, want):
+        assert len(g_epoch) == len(w_epoch) == 5
+        for g, w in zip(g_epoch, w_epoch):
+            assert_samples_equal(g, w)
 
 
 def test_arguments_are_checked():

@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import time
 from typing import Dict, Sequence
 
 import numpy as np
@@ -258,3 +259,29 @@ class ToyDataset:
             raise ValueError(f"boom at idx {idx}")
         rng = np.random.default_rng((0, epoch, idx))
         return {"x": np.full((3,), idx, np.float32), "r": rng.random(2)}
+
+
+class StartMarkingDataset(ToyDataset):
+    """A :class:`ToyDataset` whose copy in a process worker, once unpickled
+    there, writes a file named by the worker's pid into ``marks``: the loader
+    tests count the workers that have started.  The k-th copy to be
+    unpickled first waits k / 2 seconds, so the workers finish starting one
+    after another."""
+
+    def __init__(self, marks: str, n: int = 23):
+        super().__init__(n)
+        self.marks = marks
+
+    def __setstate__(self, state) -> None:
+        self.__dict__.update(state)
+        k = 0
+        while True:  # claim the first free place in the start order
+            try:
+                os.close(os.open(os.path.join(self.marks, f"place{k}"),
+                                 os.O_CREAT | os.O_EXCL))
+                break
+            except FileExistsError:
+                k += 1
+        time.sleep(0.5 * k)
+        with open(os.path.join(self.marks, f"started{os.getpid()}"), "w"):
+            pass

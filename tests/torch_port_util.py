@@ -35,6 +35,7 @@ from hoisdf_tpu.models.hoisdf import build_model as jax_build_model
 from hoisdf_tpu.tools.convert_torch_ckpt import convert_state_dict
 from hoisdf_tpu.tools.make_standin_ckpt import flax_to_torch_state
 from hoisdf_tpu.train import make_eval_step as jax_make_eval_step
+from torch_parallel_util import BNCancelledBiases  # noqa: F401 -- the tests import it here
 
 
 def configs(setting: str = "dexycb", **over):
@@ -259,12 +260,15 @@ def _grads_from_first_moment(params, opt_state):
 IMAGE_MAP_SOURCES = ("models/resnet.py", "models/decoder.py")
 
 
-def _imposed_relu(masks, ties):
+def _imposed_relu(masks, ties, lift: bool = False):
     """A stand-in for ``jax.nn.relu`` whose i-th traced call passes exactly
     ``masks[i]`` (the port's i-th ReLU; its NCHW image maps turned to NHWC),
     or decides itself where that is None.  At run time it notes in
     ``ties[i]`` how many of JAX's own decisions differ, the largest |x| among
-    them and the call's largest |x|."""
+    them and the call's largest |x|.  With ``lift`` a passing element gives
+    max(x, the smallest normal float) with gradient 1, as the port's
+    ``chip_smoke.relu_pattern`` does (the two then compute one function
+    where the mask differs from the sign of x by more than a near-tie)."""
     calls, own = [], jax.nn.relu
 
     def note(i, n, near, top):
@@ -284,62 +288,12 @@ def _imposed_relu(masks, ties):
         differ, mag = (x > 0) != m, jnp.abs(x)
         jax.debug.callback(note, i, differ.sum(), jnp.max(jnp.where(differ, mag, 0.0)),
                            jnp.max(mag))
+        if lift:
+            tiny = jnp.finfo(x.dtype).tiny
+            x = x + jax.lax.stop_gradient(jnp.maximum(x, tiny) - x)
         return jnp.where(m, x, jnp.zeros_like(x))
 
     return relu
-
-
-class BNCancelledBiases:
-    """Records, during one port train step, the gradient terms of every bias
-    whose layer feeds a train-mode BatchNorm directly.  Such a bias's
-    gradient is a sum of N = B*H*W terms (the gradient at the layer's output)
-    that train-mode BN makes cancel to zero in exact arithmetic, so in f32 it
-    is rounding noise on both sides and the two sides' noise cannot be
-    compared.  :meth:`floors` gives each such bias a noise floor instead:
-    ``ceil(log2 N) * eps_f32 * ||sum_i |g_i| ||`` over its channels, the
-    error bound of a pairwise f32 sum of the terms that cancel (a summation
-    tree of depth log2 N rounds each partial sum once per level)."""
-
-    def __init__(self, model):
-        import torch
-
-        from hoisdf_torch.models.layers import BatchNorm2d
-
-        self.terms = {}  # bias name -> (per-channel sum of |g|, N)
-        outputs, handles = {}, []
-
-        def layer_hook(name):
-            def hook(module, inputs, out):
-                outputs[id(out)] = (name, out)
-            return hook
-
-        def bn_hook(module, inputs):
-            x = inputs[0]
-            name, out = outputs.get(id(x), (None, None))
-            if module.training and out is x and x.requires_grad:
-                x.register_hook(lambda g, name=name: self._record(name, g))
-
-        for name, m in model.named_modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)) and m.bias is not None:
-                handles.append(m.register_forward_hook(layer_hook(f"{name}.bias")))
-            elif isinstance(m, BatchNorm2d):
-                handles.append(m.register_forward_pre_hook(bn_hook))
-        self._handles = handles
-
-    def _record(self, name, g):
-        g = g.detach().double()
-        s = g.abs().sum(dim=(0, 2, 3)).numpy()
-        prev_s, prev_n = self.terms.get(name, (0.0, 0))
-        self.terms[name] = (prev_s + s, prev_n + g.numel() // g.shape[1])
-
-    def close(self):
-        for h in self._handles:
-            h.remove()
-
-    def floors(self) -> dict:
-        eps = float(np.finfo(np.float32).eps)
-        return {name: int(np.ceil(np.log2(n))) * eps * float(np.linalg.norm(s))
-                for name, (s, n) in self.terms.items()}
 
 
 def train_setup(jcfg, pcfg, branches=tuple(BRANCHES)):
