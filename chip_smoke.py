@@ -88,6 +88,19 @@ Phases, each printing one JSON line:
              eight batches; predict_async's host ms (median of 20) beside
              the step's device ms (torch.profiler).  Then the sync check on
              ho3d (DecoderBig) at u8.
+   export  - the u8 serving Predictor's step exported with torch.export
+             (tools/export.py) at batch 22, fixed and polymorphic, each
+             loaded back and called on the card (the polymorphic one also at
+             batch 8) against the eager step on the same inputs: bitwise, or
+             within 2e-2 of the output's scale on mano_joints and obj_trans
+             (every output's error printed); per call the kernels' launches
+             (equal to the eager step's); export and load seconds; the fixed
+             program's host and device ms beside eager's.
+   profile_trace - utils/profiling.py's capture_trace around one serving
+             step: its Chrome trace must name both kernels.
+   mano    - every option of mano/layer.py (PCA 6 and 45, flat_hand_mean
+             off, center_idx None, trans, the left hand, rotation matrices)
+             and mano/demo.py's random hand, card against CPU, within 1e-3 mm.
 5. train   - the dexycb preset at full width (f32, batch 22) trains through
              the port's make_train_step: presampled and field-guided steps
              (branches forced through presample_gate), median ms per step,
@@ -108,6 +121,9 @@ Phases, each printing one JSON line:
    the ho3d pyramid as on the dexycb one (`"pyramid": "ho3d"` kernel lines),
    and each train phase holds and times it on one field-guided step's
    launches.  The train, train_check and kernel lines carry `setting`.
+   backbone_init - train_loop's --backbone-init: a synthetic torchvision
+             ResNet-50 .pth grafted into the full-width dexycb train state,
+             which must hold it, then one presampled f32 train step.
 7. data    - DexYCB and HO3D from disk: trees in the original's layout at
              640 x 480 (tests/torch_data_fixtures.py) in a temporary
              directory.  The loader on the DexYCB train split (9 batches of
@@ -152,9 +168,10 @@ Phases, each printing one JSON line:
              processes share the card (gloo), 11 rows each of one 22-row
              batch, DDP and ZeRO-1, every ReLU passing the one-process
              step's elements: the losses within 1e-5 relative, each group's
-             gradient within 1e-3 (the betas 5e-3) of the one-process step's;
-             each rank's peak memory; FSDP where gloo gathers CUDA tensors,
-             else the reason.  eval: evaluate_batches at two ranks (gloo,
+             gradient within 1e-3 (the betas 5e-3) of the one-process step's,
+             FSDP's gradients gathered from the ranks' shards as host copies;
+             each rank's peak memory in the first step and in a second (with
+             the AdamW moments), where ZeRO-1's must not exceed DDP's.  eval: evaluate_batches at two ranks (gloo,
              the predictions gathered to rank 0) against one rank, f32, on
              one recorded selection: every result within 1e-5.  A rank that
              fails fails the run.  Two ranks on one card measure correctness
@@ -164,10 +181,15 @@ Phases, each printing one JSON line:
              sampler phase; the backward's `ho3d_*` fields from the ho3d train step,
              every kernel's launches per preset's train phase, and the two
              serving kernels' launches in serve_closed, `launches_server`,
-             and each kernel's launches in the world1 check's four steps
-             under each wrapper, `launches_parallel`).
+             and in one call of the exported program, `launches_export`, and
+             each kernel's launches in the world1 check's four steps under
+             each wrapper, `launches_parallel`).  Every kernel is reached
+             through its torch.library custom op (hoisdf_torch/ops/kernels).
 
-Any failed check raises, and the script exits non-zero.  The last line is
+Throughout, plain_guard notes every call of a kernel's plain version that
+the port makes with a CUDA tensor; one such call fails the run (the
+plain_guard line, before the kernels line).  Any failed check raises, and
+the script exits non-zero.  The last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits 1 and prints no result.
 Weights are random, made from a seed; MANO is the synthetic stand-in.
 """
@@ -1681,6 +1703,279 @@ def profile_step(predictor, frames_seed: int = 7):
     return profile_breakdown(lambda: predictor.predict(fr), 2, "profile")
 
 
+EXPORT_RTOL = 2e-2  # bf16: the program's and eager's cuDNN algorithms may differ
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|: a difference measured against the output's
+    scale (elementwise rtol is meaningless where outputs cross zero)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _host_ms(fn, n: int = 10) -> list:
+    """Host ms of each of ``n`` calls of ``fn``, the card idle at each."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return out
+
+
+def export_phase(pred, frames) -> dict:
+    """The serving export (hoisdf_torch/tools/export.py) on the card: the
+    warmed dexycb Predictor (bf16, u8 wire) exported with torch.export at its
+    batch, fixed and polymorphic, each loaded back with torch.export.load and
+    called on the card (the polymorphic one also at batch 8), against the
+    eager step on the same inputs (at batch 8 too; beside it, the error
+    against the Predictor's padded batch-22 step): bitwise, or within
+    EXPORT_RTOL of the
+    output's scale on mano_joints and obj_trans (every output's error
+    printed); per exported call the kernels' launches, which must equal the
+    eager step's; export and load seconds; the fixed program's host and
+    device ms beside eager's."""
+    import importlib
+    import json as _json
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+    from hoisdf_torch.predictor import INPUT_KEYS
+    from hoisdf_torch.tools.export import OUTPUT_KEYS, export_serving_module
+
+    dev, batch = pred.device, pred.batch_size
+    res = {"phase": "export", "setting": pred.cfg.setting, "batch": batch,
+           "compute_dtype": pred.cfg.compute_dtype, "wire": pred.transfer_dtype,
+           "sdf_infer_mode": pred.cfg.sdf_infer_mode, "rtol_of_scale": EXPORT_RTOL,
+           "torch": torch.__version__, "card": smi_line(), "programs": {}}
+
+    def eager(inputs):
+        out = pred._eval_step(dict(zip(INPUT_KEYS, inputs)))
+        return dict({k: out[k] for k in ("mano_joints", "mano_verts", "hand_joints")},
+                    obj_rot=out["obj_rot"].mean(dim=1), obj_trans=out["obj_trans"].mean(dim=1))
+
+    def on_card(fr, n):
+        return [torch.from_numpy(np.ascontiguousarray(fr[k][:n])).to(dev) for k in INPUT_KEYS]
+
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as root, torch.inference_mode():
+        full = on_card(frames[0], batch)
+        reset_launch_counts()
+        want_full = eager(full)
+        torch.cuda.synchronize()
+        eager_launches = dict(launch_counts)
+        for kind, poly in (("fixed", False), ("polymorphic", True)):
+            out_dir = os.path.join(root, kind)
+            t0 = time.perf_counter()
+            with torch.inference_mode(False):
+                export_serving_module(pred, out_dir, polymorphic_batch=poly)
+            export_s = time.perf_counter() - t0
+            sig = _json.load(open(os.path.join(out_dir, "signature.json")))
+            importlib.import_module(sig["ops"])
+            t0 = time.perf_counter()
+            prog = torch.export.load(os.path.join(out_dir, "model.pt2")).module()
+            load_s = time.perf_counter() - t0
+            flat = np.load(os.path.join(out_dir, "params.npz"))
+            params = [torch.from_numpy(flat[k]).to(dev) for k in sig["param_order"]]
+            entry = {"export_s": export_s, "load_s": load_s, "batch_size": sig["batch_size"],
+                     "calls": {}}
+            for n in ((batch, 8) if poly else (batch,)):
+                inputs = full if n == batch else on_card(frames[0], n)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                got = prog(*params, *inputs)
+                torch.cuda.synchronize()
+                launches = dict(launch_counts)
+                want = want_full if n == batch else eager(inputs)
+                bitwise = all(torch.equal(got[k], want[k]) for k in OUTPUT_KEYS)
+                errs = {k: _rel_err(got[k].cpu(), want[k].cpu()) for k in OUTPUT_KEYS}
+                shapes = all(tuple(got[k].shape) == tuple(want[k].shape) and
+                             bool(torch.isfinite(got[k]).all()) for k in OUTPUT_KEYS)
+                call = {"bitwise": bitwise, "rel_err_of_scale": errs,
+                        "max_abs_err": {k: float((got[k] - want[k]).abs().max())
+                                        for k in OUTPUT_KEYS},
+                        "launches": launches, "eager_launches": eager_launches,
+                        "outputs_ok": shapes}
+                if n != batch:  # beside: the Predictor's rows, the batch padded to its own
+                    padded = eager([torch.cat([t, t[-1:].expand(batch - n, *t.shape[1:])])
+                                    for t in inputs])
+                    call["rel_err_of_scale_vs_padded_batch"] = {
+                        k: _rel_err(got[k].cpu(), padded[k][:n].cpu()) for k in OUTPUT_KEYS}
+                if n == batch and not poly:
+                    host = _host_ms(lambda: prog(*params, *inputs))
+                    host_eager = _host_ms(lambda: eager(inputs))
+                    call.update(
+                        host_ms=statistics.median(host), host_ms_range=[min(host), max(host)],
+                        eager_host_ms=statistics.median(host_eager),
+                        eager_host_ms_range=[min(host_eager), max(host_eager)],
+                        device_ms=device_breakdown(lambda: prog(*params, *inputs), 2)[
+                            "device_ms_per_step"],
+                        eager_device_ms=device_breakdown(lambda: eager(inputs), 2)[
+                            "device_ms_per_step"])
+                close = bitwise or all(errs[k] <= EXPORT_RTOL for k in ("mano_joints", "obj_trans"))
+                kernels_ran = all(launches[k] == eager_launches[k] and launches[k] > 0
+                                  for k in ("sdf_mlp", "gather_lerp"))
+                call["ok"] = close and shapes and kernels_ran
+                ok = ok and call["ok"]
+                entry["calls"][str(n)] = call
+            res["programs"][kind] = entry
+            del prog, params
+    res["ok"] = ok
+    emit(res)
+    if not ok:
+        raise AssertionError("the exported serving program disagrees with the eager step, or "
+                             "did not launch the kernels as the eager step does")
+    return res
+
+
+def profile_trace_phase(pred, frames) -> dict:
+    """utils/profiling.py's capture_trace around one serving step: the Chrome
+    trace it writes must name both kernels among its CUDA kernel events."""
+    import glob
+    import json as _json
+    import os
+    import tempfile
+
+    import torch
+
+    from hoisdf_torch.utils.profiling import capture_trace
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        t0 = time.perf_counter()
+        with capture_trace(d):
+            pred.predict(frames[0])
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+        events = [ev for f in files for ev in _json.load(open(f)).get("traceEvents", [])]
+    kernels = sorted({ev["name"] for ev in events if ev.get("cat") == "kernel"})
+    named = {k: [n for n in kernels if k in n] for k in ("sdf_mlp", "gather_lerp")}
+    res = {"phase": "profile_trace", "files": len(files), "events": len(events),
+           "kernel_names": len(kernels), "port_kernels": named, "seconds": seconds,
+           "ok": len(files) == 1 and all(named.values())}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("capture_trace wrote no trace that names both kernels")
+    return res
+
+
+MANO_TOL_MM = 1e-3
+
+
+def mano_phase(device, batch: int = 22) -> dict:
+    """mano/layer.py's options and mano/demo.py on the card against the CPU on
+    the same inputs (f32, TF32 off): axis-angle, PCA at 6 and 45,
+    flat_hand_mean off, center_idx None, trans, the left hand, rotation
+    matrices; generate_random_hand's draws run through the CPU layer.  Max
+    abs error in mm, within MANO_TOL_MM."""
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.mano.demo import generate_random_hand
+    from hoisdf_torch.mano.layer import ManoBuffers, ManoLayer, mano_forward
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.ops.rotations import batch_rodrigues
+
+    rng = np.random.RandomState(5)
+    model = make_synthetic_mano(0)
+    cpu, card = ManoBuffers.from_model(model), ManoBuffers.from_model(model, device)
+    betas = torch.from_numpy((rng.randn(batch, 10) * 0.5).astype(np.float32))
+    trans = torch.from_numpy((rng.randn(batch, 3) * 0.1).astype(np.float32))
+    aa = lambda n: torch.from_numpy((rng.randn(batch, 3 + n) * 0.4).astype(np.float32))
+    rotmats = batch_rodrigues(aa(45)[:, :48].reshape(-1, 3)).reshape(batch, 16, 3, 3)
+    cases = {"axisang": (aa(45), {}), "pca6": (aa(6), dict(use_pca=True, ncomps=6)),
+             "pca45": (aa(45), dict(use_pca=True, ncomps=45)),
+             "not_flat": (aa(45), dict(flat_hand_mean=False)),
+             "uncentred": (aa(45), dict(center_idx=None)), "trans": (aa(45), dict(trans=True)),
+             "left": (aa(45), dict(side="left")),
+             "rotmat": (rotmats + 0.01, dict(joint_rot_mode="rotmat"))}
+    errs = {}
+    for name, (pose, opts) in cases.items():
+        t = trans if opts.pop("trans", False) else None
+        want = mano_forward(cpu, pose, betas, t, **opts)
+        got = mano_forward(card, pose.to(device), betas.to(device),
+                           None if t is None else t.to(device), **opts)
+        errs[name] = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    hand = generate_random_hand(batch, 6, seed=3, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    pose = torch.randn(batch, 9, generator=gen, device=device).cpu()
+    shape = torch.randn(batch, 10, generator=gen, device=device).cpu()
+    want = ManoLayer(model, use_pca=True, ncomps=6, center_idx=None)(pose, shape)
+    errs["generate_random_hand"] = max(float((hand[k].cpu() - w).abs().max())
+                                       for k, w in zip(("verts", "joints"), want))
+    res = {"phase": "mano", "batch": batch, "max_abs_err_mm": errs, "tol_mm": MANO_TOL_MM,
+           "ok": all(e <= MANO_TOL_MM for e in errs.values())}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("the MANO layer on the card disagrees with the CPU")
+    return res
+
+
+def backbone_init_phase(device, batch_size: int = 22) -> dict:
+    """train_loop's --backbone-init on the card: a synthetic torchvision
+    ResNet-50 state dict (.pth, fc.* included, tools/synth_weights.py's
+    values from seed 11) grafted into the
+    full-width dexycb train state, which must then hold it; then one
+    presampled train step (f32, batch 22): finite losses, both kernels and
+    the backward launched."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.config import get_config
+    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
+    from hoisdf_torch.tools.synth_weights import synth_value
+    from hoisdf_torch.train_loop import BACKBONE_PREFIX, load_backbone_init
+
+    cfg = get_config("dexycb")
+    state, step = _train_parts(cfg, device)
+    shapes = {k[len(BACKBONE_PREFIX):]: tuple(v.shape)
+              for k, v in state.module.state_dict().items()
+              if k.startswith(BACKBONE_PREFIX) and not k.endswith("num_batches_tracked")}
+    shapes.update({"fc.weight": (1000, 2048), "fc.bias": (1000,)})
+    # tools/synth_weights.py's values: a random ResNet-50 that stays finite
+    tv = {k: torch.from_numpy(synth_value(k, s, 11)) for k, s in shapes.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_backbone_") as d:
+        path = os.path.join(d, "resnet50.pth")
+        torch.save(tv, path)
+        t0 = time.perf_counter()
+        load_backbone_init(state, path)
+        graft_s = time.perf_counter() - t0
+    sd = state.module.state_dict()
+    held = all(torch.equal(sd[BACKBONE_PREFIX + k].cpu(), v) for k, v in tv.items()
+               if not k.startswith("fc."))
+    inputs, targets = _train_batches(cfg, batch_size, 1)[0]
+    reset_launch_counts()
+    _, losses = step(state, inputs, targets, None, 0.0, use_presampled=True)
+    torch.cuda.synchronize(device)
+    launches = dict(launch_counts)
+    losses = {k: float(v) for k, v in losses.items()}
+    res = {"phase": "backbone_init", "setting": cfg.setting, "batch": batch_size,
+           "keys_grafted": len(tv) - 2, "graft_s": graft_s, "backbone_holds_file": held,
+           "losses": losses, "launches": launches,
+           "ok": held and all(np.isfinite(v) for v in losses.values())
+           and all(launches[k] > 0 for k in ("gather_lerp", "gather_lerp_bwd"))}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("the backbone graft did not hold, or the step after it failed")
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---- phases 5 and 6: training ------------------------------------------------
 
 def _train_parts(cfg, device, seed: int = 0, dropout: bool = True):
@@ -1709,7 +2004,7 @@ def tf32_on() -> bool:
 
 def capture_bwd_launches(run):
     """Call ``run`` once and keep the inputs of every launch of the gather's
-    backward (through the module attribute its autograd Function calls)."""
+    backward (through the module attribute its autograd formula calls)."""
     from hoisdf_torch.ops.kernels import gather_lerp as module
 
     kernel, seen = module.gather_lerp_bwd, []
@@ -2426,6 +2721,7 @@ def _world1_child(mesh, cfg, batch_size: int):
     of 3, cuDNN's default algorithms).  Per mode also the kernel launches of
     the four steps and the peak memory."""
     import copy
+    import gc
 
     import numpy as np
     import torch
@@ -2472,7 +2768,7 @@ def _world1_child(mesh, cfg, batch_size: int):
                 state.step = i
             impose = None if mode == "plain_record" else selections[i]
             with recorded_selections(impose) as seen:
-                _, l = step(state, *batches[b], None, 0.0, use_presampled=pre)
+                state, l = step(state, *batches[b], None, 0.0, use_presampled=pre)
             if mode == "plain_record":
                 selections.append([s["points"] for s in seen])
                 continue
@@ -2500,7 +2796,8 @@ def _world1_child(mesh, cfg, batch_size: int):
             torch.backends.cudnn.deterministic = True
             entry.update(ms_per_step=float(np.median(times[1:])), ms_runs=times[1:])
         out[mode] = entry
-        del state
+        del state, l
+        gc.collect()  # the wrappers hold reference cycles: free the mode before the next
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
     out["tf32"] = tf32_on()
@@ -2564,17 +2861,46 @@ def world1_check(cfg, batch_size: int, device, workdir: str) -> dict:
     return res
 
 
-def _two_ranks_child(mesh, cfg, ref_path: str):
-    """One of two ranks on one card (gloo): its 11 rows of the 22-row batch,
-    one presampled step in DDP and in ZeRO-1 from the reference's weights,
-    every ReLU passing the reference's rows (``relu_pattern(shard=...)``);
-    rank 0 holds the gradients against the one-process step's.  Then FSDP,
-    if gloo gathers and scatters CUDA tensors.  Per mode: losses, ReLU ties,
-    peak memory; rank 0: each group's gradient error."""
-    import copy
-
+def _host_grads(module, mesh) -> dict:
+    """The parameters' gradients, whole, on the host of every rank: an FSDP
+    gradient (a DTensor sharded on dim 0) is gathered from each rank's local
+    shard as a host copy (``all_gather_object``), never by a collective on
+    the card's tensors over gloo."""
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    out = {}
+    for n, p in module.named_parameters():
+        g = p.grad
+        if isinstance(g, DTensor):
+            if tuple(g.placements) != (Shard(0),):
+                raise AssertionError(f"{n}: FSDP gradient placed as {g.placements}")
+            parts = [None] * mesh.world
+            dist.all_gather_object(parts, g.to_local().detach().cpu(), group=mesh.group)
+            out[n] = torch.cat(parts).reshape(g.shape)
+        else:
+            out[n] = g.detach().cpu()
+    return out
+
+
+def _two_ranks_child(mesh, cfg, ref_path: str):
+    """One of two ranks on one card (gloo): its 11 rows of the 22-row batch,
+    one presampled step in DDP, ZeRO-1 and FSDP from the reference's weights,
+    every ReLU passing the reference's rows (``relu_pattern(shard=...)``);
+    rank 0 holds each mode's gradients (FSDP's gathered to the host,
+    ``_host_grads``) against the one-process step's.  Then a second step (its
+    own ReLUs), whose peak is the steady state's: the AdamW moments exist
+    from the first step on.  cuBLAS's workspaces are made before the first
+    mode, so every mode starts holding them.  Per mode: losses, ReLU ties,
+    the memory held before the mode's state is made (nothing of the
+    previous mode may stay),
+    the first step's and the second step's peak; rank 0: each group's
+    gradient error."""
+    import copy
+    import gc
+
+    import torch
 
     from hoisdf_torch.mano.layer import ManoBuffers
     from hoisdf_torch.mano.model import make_synthetic_mano
@@ -2588,15 +2914,13 @@ def _two_ranks_child(mesh, cfg, ref_path: str):
     inputs, targets = ref["batch"]
     inputs, targets = shard_batch(inputs, mesh), shard_batch(targets, mesh)
     step = make_train_step(cfg, ManoBuffers.from_model(make_synthetic_mano(0)), device=dev)
+    w = torch.randn(64, 64, device=dev, requires_grad=True)
+    (w @ w).sum().backward()  # cuBLAS's two workspaces (forward, backward thread) held by all
+    del w
     out = {}
     for mode in PARALLEL_MODES:
-        if mode == "fsdp":
-            probe = torch.zeros(mesh.world, device=dev)
-            try:
-                dist.all_gather_into_tensor(probe, torch.ones(1, device=dev))
-            except (RuntimeError, ValueError, NotImplementedError) as exc:
-                out[mode] = {"skipped": f"{type(exc).__name__}: {exc}".strip()[:300]}
-                continue
+        torch.cuda.synchronize(dev)
+        held_before = torch.cuda.memory_allocated(dev) / 2**30
         state = create_train_state(cfg, copy.deepcopy(base), 100, device=dev, mesh=mesh,
                                    zero=mode)
         torch.cuda.synchronize(dev)
@@ -2604,19 +2928,26 @@ def _two_ranks_child(mesh, cfg, ref_path: str):
         impose = relu_pattern(ref["relu_masks"], shard=(mesh.rank, mesh.world))
         reset_launch_counts()
         with impose:
-            _, losses = step(state, inputs, targets, None, 0.0, use_presampled=True)
+            state, losses = step(state, inputs, targets, None, 0.0, use_presampled=True)
         torch.cuda.synchronize(dev)
         entry = {"losses": {k: float(v) for k, v in losses.items()},
                  "ties": impose.ties, "launches": dict(launch_counts),
+                 "held_before_gib": held_before,
                  "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-        grads = {n: p.grad for n, p in state.module.named_parameters()}
-        if mode != "fsdp" and mesh.rank == 0:
+        grads = _host_grads(state.module, mesh)
+        if mesh.rank == 0:
             got = _groups_of(grads, ref["names"])
             entry["grad_rel_err"] = {k: float((v - ref["grads"][k]).norm()
                                               / max(float(ref["grads"][k].norm()), 1e-30))
                                      for k, v in got.items()}
+        del grads
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, _ = step(state, inputs, targets, None, 0.0, use_presampled=True)
+        torch.cuda.synchronize(dev)
+        entry["peak_mem_steady_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         out[mode] = entry
-        del state, grads
+        del state, losses, impose
+        gc.collect()
         torch.cuda.empty_cache()
     return out
 
@@ -2625,14 +2956,16 @@ def two_ranks_check(cfg, batch_size: int, device, workdir: str, grad_tol: float 
                     scalar_grad_tol: float = 5e-3, tie_rel: float = TIE_REL) -> dict:
     """The parallel phase's ``two_ranks`` line: two processes on the one card
     (NCCL refuses two ranks on a device; gloo all-reduces and broadcasts
-    CUDA tensors), each with half of a ``batch_size``-row batch, in DDP and
-    ZeRO-1, against this process's one-process step on the whole batch:
-    the losses within TWO_RANKS_LOSS_TOL relative; each parameter group's
-    gradient within ``grad_tol`` relative in norm, the scalar SDF betas
-    within ``scalar_grad_tol`` (``compare_train_step``'s tolerances), the
-    ranks' ReLUs passing the one-process step's elements (its own decisions
-    differing at near-ties only).  Two ranks that share a card measure
-    correctness and per-rank memory, not scaling."""
+    CUDA tensors), each with half of a ``batch_size``-row batch, in DDP,
+    ZeRO-1 and FSDP, against this process's one-process step on the whole
+    batch: the losses within TWO_RANKS_LOSS_TOL relative; each parameter
+    group's gradient within ``grad_tol`` relative in norm, the scalar SDF
+    betas within ``scalar_grad_tol`` (``compare_train_step``'s tolerances),
+    the ranks' ReLUs passing the one-process step's elements (its own
+    decisions differing at near-ties only).  Memory per rank: the first
+    step's peak and the second step's (the steady state, with the AdamW
+    moments), where ZeRO-1's must not exceed DDP's.  Two ranks that share a
+    card measure correctness and per-rank memory, not scaling."""
     import os
 
     import torch
@@ -2667,31 +3000,31 @@ def two_ranks_check(cfg, batch_size: int, device, workdir: str, grad_tol: float 
            "note": "two ranks share one card: correctness and per-rank memory, not scaling"}
     ok = True
     for mode in PARALLEL_MODES:
-        if "skipped" in ranks[0][mode]:
-            res[mode] = {"run": False, "reason": ranks[0][mode]["skipped"],
-                         "checked_on": "the CPU tests (tests/test_torch_parallel.py)"}
-            ok = ok and mode == "fsdp"
-            continue
+        flips = [t for r in ranks for t in r[mode]["ties"] if t[0]]
+        errs = ranks[0][mode]["grad_rel_err"]
         entry = {"peak_mem_gib_per_rank": [r[mode]["peak_mem_gib"] for r in ranks],
+                 "peak_mem_steady_gib_per_rank": [r[mode]["peak_mem_steady_gib"]
+                                                  for r in ranks],
+                 "held_before_gib_per_rank": [r[mode]["held_before_gib"] for r in ranks],
                  "launches_rank0": ranks[0][mode]["launches"],
                  "loss_rel_err": max(_loss_rel_err(r[mode]["losses"], ref_losses)
-                                     for r in ranks)}
-        if mode != "fsdp":
-            flips = [t for r in ranks for t in r[mode]["ties"] if t[0]]
-            errs = ranks[0][mode]["grad_rel_err"]
-            entry.update(
-                ranks_agree=ranks[0][mode]["losses"] == ranks[1][mode]["losses"],
-                grad_rel_err=errs, relu_switched=sum(t[0] for t in flips),
-                relu_switched_max_rel=max((n / t for _, n, t, _ in flips), default=0.0))
-            ok = ok and (entry["loss_rel_err"] <= TWO_RANKS_LOSS_TOL and entry["ranks_agree"]
-                         and all(e <= (scalar_grad_tol if k in SCALAR_GROUPS else grad_tol)
-                                 for k, e in errs.items())
-                         and entry["relu_switched_max_rel"] <= tie_rel)
+                                     for r in ranks),
+                 "ranks_agree": ranks[0][mode]["losses"] == ranks[1][mode]["losses"],
+                 "grad_rel_err": errs, "relu_switched": sum(t[0] for t in flips),
+                 "relu_switched_max_rel": max((n / t for _, n, t, _ in flips), default=0.0)}
+        entry["ok"] = (entry["loss_rel_err"] <= TWO_RANKS_LOSS_TOL and entry["ranks_agree"]
+                       and all(e <= (scalar_grad_tol if k in SCALAR_GROUPS else grad_tol)
+                               for k, e in errs.items())
+                       and entry["relu_switched_max_rel"] <= tie_rel)
+        ok = ok and entry["ok"]
         res[mode] = entry
-    res["ok"] = ok and not res["tf32"]
+    res["zero1_steady_at_or_below_ddp"] = all(
+        r["zero1"]["peak_mem_steady_gib"] <= r["off"]["peak_mem_steady_gib"] for r in ranks)
+    res["ok"] = ok and res["zero1_steady_at_or_below_ddp"] and not res["tf32"]
     emit(res)
     if not res["ok"]:
-        raise AssertionError("two ranks on the card disagree with the one-process step")
+        raise AssertionError("two ranks on the card disagree with the one-process step, or "
+                             "ZeRO-1 holds more memory than DDP")
     return res
 
 
@@ -2783,6 +3116,51 @@ def parallel_phase(device, batch_size: int = 22) -> dict:
     return {"world1": world1, "two_ranks": two, "eval": ev}
 
 
+PLAIN_VERSIONS = ("gather_lerp_plain", "gather_nearest_plain", "gather_lerp_bwd_plain",
+                  "sdf_mlp_plain")
+
+
+@contextlib.contextmanager
+def plain_guard(seen: list):
+    """Within it, every call of a kernel's plain version that code of the
+    port (a module under ``hoisdf_torch``) makes with a CUDA tensor is noted
+    in ``seen``: on the card the port must reach each kernel, never its
+    plain twin.  This script's own comparisons call the plain versions on
+    the card on purpose and are not noted.  Covers this process only (not
+    the spawned ranks or the mains' loader workers)."""
+    import torch
+
+    from hoisdf_torch.ops.kernels import gather_lerp, sdf_mlp
+
+    def on_card(args):
+        for a in args:
+            for t in (a if isinstance(a, (list, tuple)) else (a,)):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    return True
+        return False
+
+    saved = []
+    for mod in (gather_lerp, sdf_mlp):
+        for name in PLAIN_VERSIONS:
+            if not hasattr(mod, name):
+                continue
+            fn = getattr(mod, name)
+
+            def noted(*args, _fn=fn, _name=name, **kwargs):
+                caller = sys._getframe(1).f_globals.get("__name__", "")
+                if caller.startswith("hoisdf_torch") and on_card(args):
+                    seen.append(f"{_name} called by {caller}")
+                return _fn(*args, **kwargs)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, noted)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def main() -> int:
     import torch
 
@@ -2792,11 +3170,15 @@ def main() -> int:
         return 1
     from concurrent.futures import ThreadPoolExecutor
 
-    from hoisdf_torch.config import get_config
     from hoisdf_torch.native.build import build as build_native
     from hoisdf_torch.ops.kernels import build
 
     t_start = time.perf_counter()
+
+    def mark(name: str) -> None:  # each phase's end, on stderr
+        print(f"chip_smoke: {name} done at {time.perf_counter() - t_start:.1f} s",
+              file=sys.stderr, flush=True)
+
     device = torch.device("cuda", 0)
     smi = smi_line()
 
@@ -2812,6 +3194,17 @@ def main() -> int:
     emit({"phase": "native", **{k: native[k] for k in (
         "seconds", "built", "cxx", "headers", "codecs", "decode", "path")}})
 
+    plain_calls: list = []
+    with plain_guard(plain_calls):
+        return _phases(device, smi, native, t_start, mark, plain_calls)
+
+
+def _phases(device, smi, native, t_start, mark, plain_calls) -> int:
+    """Every phase after the builds, in order (``main``)."""
+    import torch
+
+    from hoisdf_torch.config import get_config
+
     serve_batch = 22
     train_cfg = get_config("dexycb")  # the preset: f32 compute, train batch 22
     sdf_timed = check_sdf_mlp(device, batch=serve_batch)
@@ -2820,10 +3213,12 @@ def main() -> int:
     # the gather backward's largest train launch: the merged token gather
     bwd_timed = check_gather_lerp_bwd(device, batch=train_cfg.train_batch_size,
                                       points=train_cfg.num_samp_hand + train_cfg.num_samp_obj)
+    mark("build and kernel")
 
     for setting in ("dexycb", "ho3d", "ho3d_render"):
         compare_forward(get_config(setting, compute_dtype="float32"), 2, device)
     nearest, sampler_steps = sampler_phase(device, serve_batch)
+    mark("forward and sampler")
 
     serve_cfg = get_config("dexycb", compute_dtype="bfloat16")
     predictors = serving_predictors(serve_cfg, serve_batch, device)
@@ -2834,7 +3229,12 @@ def main() -> int:
     # the phases that run torch.profiler come after the host-timed ones
     serve_async(predictors, frames, serve_cfg, serve_batch, device)
     profile_step(predictors["float32"])
+    mark("serving")
+    exported = export_phase(predictors["uint8"], frames["uint8"])
+    profile_trace_phase(predictors["uint8"], frames["uint8"])
     del predictors
+    mano_phase(device)
+    mark("export, profile_trace and mano")
 
     train_res, bwd_step = train(train_cfg, train_cfg.train_batch_size, device)
     compare_train_step(train_cfg, 2, device)
@@ -2850,8 +3250,11 @@ def main() -> int:
         if setting == "ho3d":
             bwd_step_ho3d = bwd
         compare_train_step(cfg, 2, device)
+    mark("train")
+    backbone_init_phase(device, train_cfg.train_batch_size)
     data_phase(device, train_res["presampled"]["median_ms"], native)
     warp_phase(device)
+    mark("backbone_init, data and warp")
 
     evals, checks = {}, []
     for setting in EVAL_PRESETS:
@@ -2862,8 +3265,10 @@ def main() -> int:
     emit(eval_check)
     if not eval_check["ok"]:
         raise AssertionError("the evaluator's results on the card and on the CPU disagree")
+    mark("eval")
 
     par = parallel_phase(device, batch_size=train_cfg.train_batch_size)
+    mark("parallel")
 
     launches, train_launches = serve_res["launches"], train_res["launches"]
     kernels = [
@@ -2915,10 +3320,18 @@ def main() -> int:
          "ho3d_max_abs_err": max(bwd_ho3d["max_abs_err"], bwd_step_ho3d["max_abs_err"]),
          "ho3d_ms_clustered": bwd_ho3d["ms_clustered"], "ho3d_ms_uniform": bwd_ho3d["ms_uniform"]},
     ]
+    export_launches = exported["programs"]["fixed"]["calls"][str(serve_batch)]["launches"]
+    for entry in kernels[:2]:  # launches in one call of the exported serving program
+        entry["launches_export"] = export_launches[entry["name"]]
     for entry in kernels:  # launches in each preset's train phase and under each wrapper
         entry["launches_train"] = {s: r["launches"][entry["name"]] for s, r in trains.items()}
         entry["launches_parallel"] = {m: par["world1"][m]["launches"][entry["name"]]
                                       for m in PARALLEL_MODES}
+    guard = {"phase": "plain_guard", "port_calls_on_card": plain_calls[:20],
+             "ok": not plain_calls}
+    emit(guard)
+    if not guard["ok"]:
+        raise AssertionError("the port ran a kernel's plain version on a CUDA tensor")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", file=sys.stderr)
     print(smi, flush=True)
     emit({"kernels": kernels})

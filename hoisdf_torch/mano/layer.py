@@ -1,5 +1,6 @@
 """MANO forward in PyTorch: blend shapes, forward kinematics, skinning
-(``hoisdf_tpu/mano/layer.py``, the axis-angle path the eval head uses).
+(``hoisdf_tpu/mano/layer.py``, every option of its ``mano_forward``, and
+``ManoLayer``).
 
 Geometry runs in f32 whatever the model's compute type; on the card f32
 matmuls stay full f32 unless TF32 is switched on.  Outputs are millimetres.
@@ -16,14 +17,16 @@ from hoisdf_torch.mano.model import (
     LEV1_IDXS,
     LEV2_IDXS,
     LEV3_IDXS,
+    TIPS_LEFT,
     TIPS_RIGHT,
     TRANSFORM_REORDER,
     ManoModel,
 )
-from hoisdf_torch.ops.rotations import batch_rodrigues
+from hoisdf_torch.ops.rotations import batch_rodrigues, batch_rotprojs
 
 
-_MODEL_FIELDS = ("betas", "shapedirs", "posedirs", "v_template", "j_regressor", "weights")
+_MODEL_FIELDS = ("betas", "shapedirs", "posedirs", "v_template", "j_regressor", "weights",
+                 "hands_components", "hands_mean")
 
 
 class ManoBuffers(NamedTuple):
@@ -37,18 +40,22 @@ class ManoBuffers(NamedTuple):
     v_template: torch.Tensor  # [778, 3]
     j_regressor: torch.Tensor  # [16, 778]
     weights: torch.Tensor  # [778, 16]
+    hands_components: torch.Tensor  # [45, 45] PCA pose basis
+    hands_mean: torch.Tensor  # [45] mean pose (axis-angle)
     lev1: torch.Tensor  # [5] i64, the FK levels' joints (LEV*_IDXS)
     lev2: torch.Tensor  # [5]
     lev3: torch.Tensor  # [5]
     transform_reorder: torch.Tensor  # [16]
-    tips: torch.Tensor  # [5] fingertip vertices
+    tips: torch.Tensor  # [5] fingertip vertices, right hand
+    tips_left: torch.Tensor  # [5] fingertip vertices, left hand
     joint_reorder: torch.Tensor  # [21]
 
     @classmethod
     def from_model(cls, m: ManoModel, device="cpu") -> "ManoBuffers":
         arrays = [torch.as_tensor(getattr(m, f), dtype=torch.float32) for f in _MODEL_FIELDS]
         index = [torch.as_tensor(i, dtype=torch.long) for i in (
-            LEV1_IDXS, LEV2_IDXS, LEV3_IDXS, TRANSFORM_REORDER, TIPS_RIGHT, JOINT_REORDER)]
+            LEV1_IDXS, LEV2_IDXS, LEV3_IDXS, TRANSFORM_REORDER, TIPS_RIGHT, TIPS_LEFT,
+            JOINT_REORDER)]
         return cls(*arrays, *index).to(device)
 
     def to(self, device) -> "ManoBuffers":
@@ -64,16 +71,43 @@ def _rigid_transform(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
 
 
 def mano_forward(buffers: ManoBuffers, pose_coeffs: torch.Tensor,
-                 betas: Optional[torch.Tensor] = None):
-    """pose [B, 48] axis-angle (global rot first), betas [B, 10] or None for
-    the template shape -> (verts [B,778,3], joints [B,21,3]) in mm, centred on
-    the root joint (flat hand mean, no PCA, right-hand fingertips)."""
+                 betas: Optional[torch.Tensor] = None, trans: Optional[torch.Tensor] = None, *,
+                 use_pca: bool = False, ncomps: int = 45, center_idx: Optional[int] = 0,
+                 flat_hand_mean: bool = True, side: str = "right",
+                 joint_rot_mode: str = "axisang"):
+    """MANO forward: pose/shape -> (verts [B,778,3] mm, joints [B,21,3] mm),
+    the JAX package's ``mano_forward`` (manolayer.py:111-276, root rotation
+    in axis-angle).
+
+    ``pose_coeffs``: [B, 3 + ncomps], the global axis-angle rotation then
+    the hand pose (PCA coefficients with ``use_pca``, else 45 axis-angle
+    values); or with ``joint_rot_mode="rotmat"`` (and no PCA) [B,16,3,3]
+    matrices, projected onto SO(3).  ``betas`` [B, 10], or None for the
+    template shape.  ``trans`` [B, 3] in metres is added; without it the
+    result is centred on joint ``center_idx`` (None: not centred).  The
+    hand mean is added unless ``flat_hand_mean``; ``side`` picks the
+    fingertip vertices.  The eval head's case (axis-angle, flat mean, no
+    PCA) takes the pose as given: no extra launch."""
     batch = pose_coeffs.shape[0]
     dev, dtype = pose_coeffs.device, pose_coeffs.dtype
-    rot_mats = batch_rodrigues(pose_coeffs[:, :48].reshape(-1, 3)).reshape(batch, 16, 3, 3)
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    if not use_pca and joint_rot_mode == "rotmat":
+        if tuple(pose_coeffs.shape[1:]) != (16, 3, 3):
+            raise ValueError(f"rotmat pose must be [B,16,3,3], got {tuple(pose_coeffs.shape)}")
+        rot_mats = batch_rotprojs(pose_coeffs)
+    else:
+        if use_pca or not flat_hand_mean:
+            hand_pose = pose_coeffs[:, 3:3 + ncomps]
+            if use_pca:
+                hand_pose = hand_pose @ buffers.hands_components[:ncomps]
+            mean = torch.zeros_like(buffers.hands_mean) if flat_hand_mean else buffers.hands_mean
+            full_pose = torch.cat([pose_coeffs[:, :3], mean[None] + hand_pose], dim=1)
+        else:
+            full_pose = pose_coeffs[:, :48]
+        rot_mats = batch_rodrigues(full_pose.reshape(-1, 3)).reshape(batch, 16, 3, 3)
     root_rot = rot_mats[:, 0]
     rot_map = rot_mats[:, 1:]
-    pose_map = (rot_map - torch.eye(3, dtype=dtype, device=dev)).reshape(batch, 135)
+    pose_map = (rot_map - eye).reshape(batch, 135)
 
     if betas is None:
         v_shaped = (torch.einsum("vds,s->vd", buffers.shapedirs, buffers.betas)
@@ -107,7 +141,38 @@ def mano_forward(buffers: ManoBuffers, pose_coeffs: torch.Tensor,
                                                device=dev)], dim=-1)
     verts = torch.einsum("bvrc,bvc->bvr", skin_t, v_posed_h)[..., :3]
 
-    jtr = torch.cat([all_t[:, :, :3, 3], verts[:, buffers.tips]], dim=1)
+    tips = buffers.tips if side == "right" else buffers.tips_left
+    jtr = torch.cat([all_t[:, :, :3, 3], verts[:, tips]], dim=1)
     jtr = jtr[:, buffers.joint_reorder]
-    center = jtr[:, :1]
-    return (verts - center) * 1000.0, (jtr - center) * 1000.0
+    if trans is not None:
+        jtr = jtr + trans[:, None]
+        verts = verts + trans[:, None]
+    elif center_idx is not None:
+        center = jtr[:, center_idx:center_idx + 1]
+        jtr = jtr - center
+        verts = verts - center
+    return verts * 1000.0, jtr * 1000.0
+
+
+class ManoLayer:
+    """Buffers and static options bound together, as the reference's
+    constructor binds them (manolayer.py:20-109)."""
+
+    def __init__(self, model: ManoModel, *, use_pca: bool = False, ncomps: int = 45,
+                 center_idx: Optional[int] = 0, flat_hand_mean: bool = True, device="cpu"):
+        self.buffers = ManoBuffers.from_model(model, device)
+        self.use_pca = use_pca
+        self.ncomps = ncomps
+        self.center_idx = center_idx
+        self.flat_hand_mean = flat_hand_mean
+        self.side = model.side
+        self.faces = model.faces
+
+    @property
+    def hands_mean(self) -> torch.Tensor:
+        return self.buffers.hands_mean
+
+    def __call__(self, pose_coeffs, betas=None, trans=None):
+        return mano_forward(self.buffers, pose_coeffs, betas, trans, use_pca=self.use_pca,
+                            ncomps=self.ncomps, center_idx=self.center_idx,
+                            flat_hand_mean=self.flat_hand_mean, side=self.side)

@@ -1,13 +1,19 @@
-"""MANO model buffers (numpy): loading and the synthetic stand-in.
+"""MANO model buffers (numpy): loading, conversion and the synthetic stand-in.
 
-A copy of ``hoisdf_tpu/mano/model.py`` minus the .pkl converter: the port
-loads the ``.npz`` that ``hoisdf_tpu.tools.convert_mano_pkl`` writes, or uses
-``make_synthetic_mano`` when no MANO assets are present.
+A copy of ``hoisdf_tpu/mano/model.py``.  The framework loads an ``.npz``
+that :func:`convert_mano_pkl` makes once from the original
+``MANO_{RIGHT,LEFT}.pkl`` without chumpy (``python -m
+hoisdf_torch.tools.convert_mano_pkl``), or uses ``make_synthetic_mano`` when
+no MANO assets are present.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
+import sys
+import types
+from typing import Optional
 
 import numpy as np
 
@@ -16,8 +22,9 @@ NUM_JOINTS = 16  # kinematic joints (root + 15)
 NUM_POSE = 45
 NUM_SHAPE = 10
 
-# Fingertip vertex indices (right hand) appended as extra joints.
+# Fingertip vertex indices appended as extra joints.
 TIPS_RIGHT = (745, 317, 444, 556, 673)
+TIPS_LEFT = (745, 317, 445, 556, 673)
 # Joint reorder applied after appending the tips.
 JOINT_REORDER = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8, 9, 20)
 # FK levels: per-finger chains, base -> tip.
@@ -41,6 +48,26 @@ class ManoModel:
     hands_mean: np.ndarray  # [45]
     side: str = "right"
 
+    @property
+    def tips(self):
+        return TIPS_RIGHT if self.side == "right" else TIPS_LEFT
+
+
+def save_mano_npz(model: ManoModel, path: str) -> None:
+    np.savez(
+        path,
+        betas=model.betas,
+        shapedirs=model.shapedirs,
+        posedirs=model.posedirs,
+        v_template=model.v_template,
+        j_regressor=model.j_regressor,
+        weights=model.weights,
+        faces=model.faces,
+        hands_components=model.hands_components,
+        hands_mean=model.hands_mean,
+        side=np.array(model.side),
+    )
+
 
 def load_mano_npz(path: str) -> ManoModel:
     with np.load(path, allow_pickle=False) as z:
@@ -56,6 +83,78 @@ def load_mano_npz(path: str) -> ManoModel:
             hands_mean=z["hands_mean"].astype(np.float32),
             side=str(z["side"]),
         )
+
+
+def _install_chumpy_stub():
+    """Register minimal 'chumpy' modules so MANO pkls unpickle without chumpy."""
+    if "chumpy" in sys.modules:
+        return
+
+    class _ChStub:
+        # chumpy.Ch pickles via its instance __dict__; the dense array lives
+        # under one of a few attribute names depending on the node type.
+        def __setstate__(self, state):
+            self.__dict__.update(state)
+
+        @property
+        def r(self):
+            for key in ("x", "a", "v"):
+                v = self.__dict__.get(key)
+                if isinstance(v, np.ndarray):
+                    return v
+                if hasattr(v, "r"):
+                    return v.r
+            for v in self.__dict__.values():
+                if isinstance(v, np.ndarray) and v.size > 1:
+                    return v
+            raise ValueError("could not extract ndarray from chumpy stub")
+
+    mod = types.ModuleType("chumpy")
+    ch_mod = types.ModuleType("chumpy.ch")
+    for name in ("Ch", "Cw"):
+        setattr(mod, name, _ChStub)
+        setattr(ch_mod, name, _ChStub)
+    reordering = types.ModuleType("chumpy.reordering")
+    for name in ("Select", "transpose", "Transpose"):
+        setattr(reordering, name, _ChStub)
+    mod.ch = ch_mod
+    sys.modules["chumpy"] = mod
+    sys.modules["chumpy.ch"] = ch_mod
+    sys.modules["chumpy.reordering"] = reordering
+
+
+def _dense(v) -> np.ndarray:
+    if hasattr(v, "toarray"):  # scipy sparse
+        return np.asarray(v.toarray())
+    if hasattr(v, "r"):  # chumpy stub
+        return np.asarray(v.r)
+    return np.asarray(v)
+
+
+def convert_mano_pkl(pkl_path: str, side: Optional[str] = None) -> ManoModel:
+    """Convert an original MANO_{RIGHT,LEFT}.pkl into a :class:`ManoModel`.
+
+    Chumpy-free replacement for the reference's ``ready_arguments``
+    (smpl_handpca_wrapper_HAND_only.py:22-67).
+    """
+    _install_chumpy_stub()
+    with open(pkl_path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+    if side is None:
+        side = "left" if "LEFT" in pkl_path.upper() else "right"
+    nposedirs = _dense(data["posedirs"]).reshape(NUM_VERTS, 3, -1)
+    return ManoModel(
+        betas=np.zeros(NUM_SHAPE, np.float32),
+        shapedirs=_dense(data["shapedirs"]).astype(np.float32),
+        posedirs=nposedirs.astype(np.float32),
+        v_template=_dense(data["v_template"]).astype(np.float32),
+        j_regressor=_dense(data["J_regressor"]).astype(np.float32),
+        weights=_dense(data["weights"]).astype(np.float32),
+        faces=_dense(data["f"]).astype(np.int32),
+        hands_components=_dense(data["hands_components"]).astype(np.float32),
+        hands_mean=_dense(data["hands_mean"]).astype(np.float32),
+        side=side,
+    )
 
 
 def make_synthetic_mano(seed: int = 0, side: str = "right") -> ManoModel:

@@ -7,11 +7,11 @@ P query points per image.  The multi-level gather is one launch of the
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Sequence, Tuple
 
 import torch
 
+from hoisdf_torch.ops.device_cache import device_cache
 from hoisdf_torch.ops.kernels.gather_lerp import (
     gather_lerp,
     grid_sample_bilinear,
@@ -41,7 +41,7 @@ def project_points(points_cam: torch.Tensor, cam_intr: torch.Tensor) -> torch.Te
     return p2d[..., :2] / p2d[..., 2:3]
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _grid_normalizer(img_shape: Tuple[int, int], dtype: torch.dtype,
                      device: torch.device) -> torch.Tensor:
     """[(W-1)/2, (H-1)/2] on ``device``, made once: built from the host on

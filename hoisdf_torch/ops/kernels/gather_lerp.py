@@ -167,16 +167,56 @@ def gather_lerp_bwd(grid: torch.Tensor, g: torch.Tensor,
                     ) -> List[torch.Tensor]:
     """The backward of :func:`gather_lerp`: d/dfeat of every level (H, W, C)
     of ``shapes`` for the output gradient ``g`` [B,P,sum C], in ``dtype``.
-    CPU tensors take :func:`gather_lerp_bwd_plain`.  On the card one launch
-    covers every level, as :func:`bwd_plan` routes them: the shared route
-    writes its levels whole in ``dtype``; the global route adds into a zeroed
-    f32 buffer of its levels alone, cast to ``dtype`` after.  Only the global
-    route adds with atomics: its levels are not bitwise repeatable, the shared
-    route's are."""
-    if grid.device.type == "cpu":
-        return gather_lerp_bwd_plain(grid, g, shapes, dtype)
-    if grid.device.type != "cuda":
-        raise ValueError(f"gather_lerp_bwd: unsupported device {grid.device}")
+    The custom op ``hoisdf_torch::gather_lerp_bwd`` (:func:`_gather_lerp_bwd_op`)
+    gives the global route's levels in one f32 buffer and the shared route's
+    whole; here they are cut apart and cast."""
+    b, p = grid.shape[:2]
+    plan = bwd_plan(shapes)
+    acc, *shared = torch.ops.hoisdf_torch.gather_lerp_bwd(
+        grid, g, [d for s in shapes for d in s], dtype)
+    sizes = [b * h * w * c for (h, w, c), (sl, _) in zip(shapes, plan) if sl == 0]
+    fine, shared = iter(torch.split(acc, sizes)), iter(shared)
+    return [next(shared) if sl else next(fine).view(b, *s).to(dtype)
+            for s, (sl, _) in zip(shapes, plan)]
+
+
+def _levels(dims: Sequence[int]) -> List[Tuple[int, int, int]]:
+    return [tuple(dims[i:i + 3]) for i in range(0, len(dims), 3)]
+
+
+@torch.library.custom_op("hoisdf_torch::gather_lerp_bwd", mutates_args=(), device_types="cpu")
+def _gather_lerp_bwd_op(grid: torch.Tensor, g: torch.Tensor, dims: List[int],
+                        dtype: torch.dtype) -> List[torch.Tensor]:
+    """d/dfeat of the levels ``dims`` (H, W, C per level, flat) as
+    :func:`bwd_plan` routes them: first the global route's levels, f32
+    [B,H,W,C] each, flattened and laid end to end in one buffer; then the
+    shared route's levels in ``dtype``.  CPU tensors take
+    :func:`gather_lerp_bwd_plain`.  On the card one launch covers every
+    level: the shared route writes its levels whole; the global route adds
+    into the zeroed buffer.  Only the global route adds with atomics: its
+    levels are not bitwise repeatable, the shared route's are."""
+    shapes = _levels(dims)
+    plan = bwd_plan(shapes)
+    maps = gather_lerp_bwd_plain(grid, g, shapes, torch.float32)
+    acc = torch.cat([m.reshape(-1) for m, (sl, _) in zip(maps, plan) if sl == 0]
+                    or [grid.new_zeros(0)])
+    return [acc] + [m.to(dtype) for m, (sl, _) in zip(maps, plan) if sl]
+
+
+@_gather_lerp_bwd_op.register_fake
+def _(grid, g, dims, dtype):
+    shapes = _levels(dims)
+    b = grid.shape[0]
+    plan = bwd_plan(shapes)
+    acc = grid.new_empty(sum(b * h * w * c for (h, w, c), (sl, _) in zip(shapes, plan)
+                             if sl == 0), dtype=torch.float32)
+    return [acc] + [grid.new_empty((b, *s), dtype=dtype)
+                    for s, (sl, _) in zip(shapes, plan) if sl]
+
+
+@_gather_lerp_bwd_op.register_kernel("cuda")
+def _(grid, g, dims, dtype):
+    shapes = _levels(dims)
     if not 1 <= len(shapes) <= MAX_LEVELS:
         raise ValueError(f"gather_lerp_bwd: takes 1 to {MAX_LEVELS} levels, got {len(shapes)}")
     b, p = _check_grid(grid, "gather_lerp_bwd")
@@ -189,99 +229,103 @@ def gather_lerp_bwd(grid: torch.Tensor, g: torch.Tensor,
     if dtype not in _DTYPES:
         raise TypeError(f"gather_lerp_bwd: map dtype {dtype} not in {list(_DTYPES)}")
     plan = bwd_plan(shapes)
-    sizes = [b * h * w * c for (h, w, c), (sl, _) in zip(shapes, plan) if sl == 0]
-    acc = torch.zeros(sum(sizes), dtype=torch.float32, device=grid.device)
+    acc = torch.zeros(sum(b * h * w * c for (h, w, c), (sl, _) in zip(shapes, plan) if sl == 0),
+                      dtype=torch.float32, device=grid.device)
     outs = [torch.empty((b, *s), dtype=dtype, device=grid.device) if sl else None
             for s, (sl, _) in zip(shapes, plan)]
     if b * p > 0:
         lib = library()
-        dims = (ctypes.c_int * (3 * len(shapes)))(*[d for s in shapes for d in s])
+        dims_c = (ctypes.c_int * len(dims))(*dims)
         plan_c = (ctypes.c_int * (2 * len(shapes)))(*[v for lv in plan for v in lv])
         out_ptrs = (ctypes.c_void_p * len(shapes))(*[o.data_ptr() if o is not None else None
                                                      for o in outs])
         with torch.cuda.device(grid.device):
             stream = torch.cuda.current_stream(grid.device).cuda_stream
             rc = lib.gather_lerp_bwd_launch(grid.data_ptr(), g.data_ptr(), b, p, len(shapes),
-                                            dims, _DTYPES[g.dtype], plan_c, acc.data_ptr(),
+                                            dims_c, _DTYPES[g.dtype], plan_c, acc.data_ptr(),
                                             out_ptrs, _DTYPES[dtype], stream)
         if rc != 0:
             raise RuntimeError(f"gather_lerp_bwd kernel launch failed with CUDA error {rc}")
         launch_counts["gather_lerp_bwd"] += 1
     else:
         outs = [o.zero_() if o is not None else None for o in outs]
-    fine = iter(torch.split(acc, sizes))
-    return [o if o is not None else next(fine).view(b, *s).to(dtype)
-            for o, s in zip(outs, shapes)]
-
-
-class _GatherLerp(torch.autograd.Function):
-    """gather_lerp with d/dfeat by :func:`gather_lerp_bwd`; the grid comes
-    in detached and gets no gradient."""
-
-    @staticmethod
-    def forward(ctx, grid, *feats):
-        ctx.save_for_backward(grid)
-        ctx.shapes = [tuple(f.shape[1:]) for f in feats]
-        ctx.dtype = feats[0].dtype
-        return _gather_lerp_forward(grid, feats)
-
-    @staticmethod
-    def backward(ctx, g):
-        (grid,) = ctx.saved_tensors
-        dfeats = gather_lerp_bwd(grid, g.contiguous(), ctx.shapes, ctx.dtype)
-        return (None, *[d if need else None
-                        for d, need in zip(dfeats, ctx.needs_input_grad[1:])])
+    return [acc] + [o for o in outs if o is not None]
 
 
 def gather_lerp(grid: torch.Tensor, feats: Sequence[torch.Tensor],
                 nearest: bool = False) -> torch.Tensor:
     """Bilinear-sample (or with ``nearest``, take the nearest texel of) up to
     five NHWC levels at ``grid`` [B,P,2] (f32) and channel-concatenate ->
-    [B, P, sum C] in the maps' type (f32 or bf16).  CPU tensors take
+    [B, P, sum C] in the maps' type (f32 or bf16): the custom op
+    ``hoisdf_torch::gather_lerp``.  CPU tensors take
     :func:`gather_lerp_plain` / :func:`gather_nearest_plain`.  The bilinear
     gather is differentiable in the maps (backward :func:`gather_lerp_bwd`;
     the grid is detached); the nearest one raises if a map needs a
     gradient."""
-    if torch.is_grad_enabled() and any(f.requires_grad for f in feats):
-        if nearest:
-            raise ValueError("gather_lerp: the nearest mode is forward only; "
-                             "call it without a gradient")
-        return _GatherLerp.apply(grid.detach(), *feats)
-    return _gather_lerp_forward(grid, feats, nearest)
+    if nearest and torch.is_grad_enabled() and any(f.requires_grad for f in feats):
+        raise ValueError("gather_lerp: the nearest mode is forward only; "
+                         "call it without a gradient")
+    return torch.ops.hoisdf_torch.gather_lerp(grid.detach(), list(feats), nearest)
 
 
-def _gather_lerp_forward(grid: torch.Tensor, feats: Sequence[torch.Tensor],
-                         nearest: bool = False) -> torch.Tensor:
-    if grid.device.type == "cpu":
-        return (gather_nearest_plain if nearest else gather_lerp_plain)(grid, feats)
-    if grid.device.type != "cuda":
-        raise ValueError(f"gather_lerp: unsupported device {grid.device}")
-    if not 1 <= len(feats) <= MAX_LEVELS:
-        raise ValueError(f"gather_lerp: takes 1 to {MAX_LEVELS} levels, got {len(feats)}")
+@torch.library.custom_op("hoisdf_torch::gather_lerp", mutates_args=(), device_types="cpu")
+def _gather_lerp_op(grid: torch.Tensor, maps: List[torch.Tensor], nearest: bool) -> torch.Tensor:
+    return (gather_nearest_plain if nearest else gather_lerp_plain)(grid, maps)
+
+
+@_gather_lerp_op.register_fake
+def _(grid, maps, nearest):
+    return grid.new_empty((grid.shape[0], grid.shape[1], sum(f.shape[3] for f in maps)),
+                          dtype=maps[0].dtype)
+
+
+@_gather_lerp_op.register_kernel("cuda")
+def _(grid, maps, nearest):
+    if not 1 <= len(maps) <= MAX_LEVELS:
+        raise ValueError(f"gather_lerp: takes 1 to {MAX_LEVELS} levels, got {len(maps)}")
     b, p = _check_grid(grid, "gather_lerp")
-    dtype = feats[0].dtype
+    dtype = maps[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"gather_lerp: map dtype {dtype} not in {list(_DTYPES)}")
-    for f in feats:
+    for f in maps:
         if f.device != grid.device or f.dtype != dtype or f.dim() != 4 \
                 or f.shape[0] != b or not f.is_contiguous():
             raise ValueError(
                 "gather_lerp: maps must be contiguous NHWC tensors of one dtype on "
                 f"the grid's device with batch {b}; got {f.dtype} {tuple(f.shape)} "
                 f"contiguous={f.is_contiguous()} on {f.device}")
-    c_total = sum(f.shape[3] for f in feats)
+    c_total = sum(f.shape[3] for f in maps)
     out = torch.empty((b, p, c_total), dtype=dtype, device=grid.device)
     if b * p == 0:
         return out
     lib = library()
-    ptrs = (ctypes.c_void_p * len(feats))(*[f.data_ptr() for f in feats])
-    dims = (ctypes.c_int * (3 * len(feats)))(
-        *[d for f in feats for d in (f.shape[1], f.shape[2], f.shape[3])])
+    ptrs = (ctypes.c_void_p * len(maps))(*[f.data_ptr() for f in maps])
+    dims = (ctypes.c_int * (3 * len(maps)))(
+        *[d for f in maps for d in (f.shape[1], f.shape[2], f.shape[3])])
     with torch.cuda.device(grid.device):
         stream = torch.cuda.current_stream(grid.device).cuda_stream
-        rc = lib.gather_lerp_launch(grid.data_ptr(), b, p, len(feats), ptrs, dims,
+        rc = lib.gather_lerp_launch(grid.data_ptr(), b, p, len(maps), ptrs, dims,
                                     _DTYPES[dtype], int(nearest), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"gather_lerp kernel launch failed with CUDA error {rc}")
     launch_counts["gather_lerp_nearest" if nearest else "gather_lerp"] += 1
     return out
+
+
+def _gather_lerp_setup(ctx, inputs, output):
+    grid, maps, nearest = inputs
+    if nearest:
+        raise ValueError("gather_lerp: the nearest mode is forward only; "
+                         "call it without a gradient")
+    ctx.save_for_backward(grid)
+    ctx.shapes = [tuple(f.shape[1:]) for f in maps]
+    ctx.dtype = maps[0].dtype
+
+
+def _gather_lerp_backward(ctx, g):
+    """d/dfeat by :func:`gather_lerp_bwd`; the grid gets no gradient."""
+    (grid,) = ctx.saved_tensors
+    return None, gather_lerp_bwd(grid, g.contiguous(), ctx.shapes, ctx.dtype), None
+
+
+_gather_lerp_op.register_autograd(_gather_lerp_backward, setup_context=_gather_lerp_setup)

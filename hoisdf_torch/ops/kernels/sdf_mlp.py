@@ -10,11 +10,11 @@ kernel's weight layout are made outside the kernel, once per forward
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from hoisdf_torch.ops.device_cache import device_cache
 from hoisdf_torch.ops.kernels import launch_counts
 from hoisdf_torch.ops.kernels.build import library
 
@@ -76,7 +76,7 @@ def _layer_ranges(in_dim: int, h: Sequence[int]):
     return ((h[0], (in_dim,)), (h[1], (h[0],)), (h[2], (h[1], in_dim)), (h[3], (h[2],)))
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _stage_index(in_dim: int, h: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """Where each element of the run of weight stages comes from in the four
     zero-padded W^T laid end to end (one gather then packs a forward's
@@ -211,28 +211,41 @@ def sdf_mlp(x: torch.Tensor, weights: MlpWeights) -> torch.Tensor:
     """Fused SDF decode ``[N, in] -> [N, 1]`` f32.
 
     ``weights`` come from :func:`prepare_weights` in x's type (f32 or bf16)
-    and on x's device.  CPU tensors take :func:`sdf_mlp_plain`."""
-    if x.device.type == "cpu":
-        return sdf_mlp_plain(x, weights.plain)
-    if x.device.type != "cuda":
-        raise ValueError(f"sdf_mlp: unsupported device {x.device}")
+    and on x's device.  The custom op ``hoisdf_torch::sdf_mlp``: CPU tensors
+    take :func:`sdf_mlp_plain`, CUDA tensors the kernel."""
+    return torch.ops.hoisdf_torch.sdf_mlp(x, list(weights.plain), *weights.packed)
+
+
+@torch.library.custom_op("hoisdf_torch::sdf_mlp", mutates_args=(), device_types="cpu")
+def _sdf_mlp_op(x: torch.Tensor, weights: List[torch.Tensor], stages: torch.Tensor,
+                vectors: torch.Tensor) -> torch.Tensor:
+    return sdf_mlp_plain(x, weights)
+
+
+@_sdf_mlp_op.register_fake
+def _(x, weights, stages, vectors):
+    return x.new_empty((x.shape[0], 1), dtype=torch.float32)
+
+
+@_sdf_mlp_op.register_kernel("cuda")
+def _(x, weights, stages, vectors):
     if x.dtype not in _DTYPES:
         raise TypeError(f"sdf_mlp: x dtype {x.dtype} not in {list(_DTYPES)}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"sdf_mlp: x must be a contiguous [N, in] matrix, got {tuple(x.shape)}")
-    w = list(weights.plain)
+    w = list(weights)
     if w[0].dtype != x.dtype or w[0].device != x.device:
         raise ValueError(f"sdf_mlp: weights are {w[0].dtype} on {w[0].device}, "
                          f"x is {x.dtype} on {x.device}; prepare them for x")
     n, in_dim = x.shape
-    if in_dim != weights.in_dim:
-        raise ValueError(f"sdf_mlp: x has {in_dim} columns, the weights take {weights.in_dim}")
+    if in_dim != w[0].shape[0]:
+        raise ValueError(f"sdf_mlp: x has {in_dim} columns, the weights take {w[0].shape[0]}")
     h = [w[0].shape[1], w[2].shape[1], w[4].shape[1], w[6].shape[1]]
     out = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    w[0], w[1] = weights.packed
-    n_stages = w[0].shape[0] if x.dtype == torch.bfloat16 else f32_slice_count(in_dim, h)
+    w[0], w[1] = stages, vectors
+    n_stages = stages.shape[0] if x.dtype == torch.bfloat16 else f32_slice_count(in_dim, h)
     lib = library()
     ptrs = (ctypes.c_void_p * 10)(*[t.data_ptr() for t in w])
     dims = (ctypes.c_int * 4)(*h)

@@ -24,11 +24,12 @@ data on every call, each would hold the host until the card reached its copy.
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Tuple
 
 import numpy as np
 import torch
+
+from hoisdf_torch.ops.device_cache import device_cache
 
 
 def _on_device(value: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -47,12 +48,12 @@ def make_lattice(bins_n: int = 64) -> np.ndarray:
     return np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _lattice(bins_n: int, device: torch.device) -> torch.Tensor:
     return _on_device(make_lattice(bins_n), device)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _coarse_probes(bins_n: int, factor: int, device: torch.device) -> torch.Tensor:
     """The mean point of each factor^3 block of the lattice,
     [(bins_n/factor)^3, 3] f32, summed in f32 over the block in row-major
@@ -66,7 +67,7 @@ def _coarse_probes(bins_n: int, factor: int, device: torch.device) -> torch.Tens
     return _on_device(acc / np.float32(factor ** 3), device)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _corner_offsets(h: float, device: torch.device) -> torch.Tensor:
     """The 8 corner offsets of a cell of half-width ``h``: [8, 3] f32."""
     return _on_device(np.array([[sx * h, sy * h, sz * h] for sx in (-1, 1)
@@ -74,7 +75,7 @@ def _corner_offsets(h: float, device: torch.device) -> torch.Tensor:
                       device)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _child_offsets(s: int, child_factor: int, bins_n: int,
                    device: torch.device) -> torch.Tensor:
     """Flat-index offsets of a cell's s^3 children: [s^3] i64."""
@@ -83,7 +84,7 @@ def _child_offsets(s: int, child_factor: int, bins_n: int,
                        + r[None, None, :]).reshape(-1), device)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache()
 def _base_cells(bins_n: int, f0: int, device: torch.device) -> torch.Tensor:
     """The first stage's cell bases, every f0-th lattice point: [1, M] i64."""
     r = np.arange(bins_n // f0, dtype=np.int64) * f0
@@ -153,9 +154,9 @@ def _merge_topk(state, score, sdf, index, k: int):
     of every out-of-box point."""
     all_score = torch.cat([state[0], score], dim=1)
     sel = _smallest(all_score, k)
-    return (torch.take_along_dim(all_score, sel, dim=1),
-            torch.take_along_dim(torch.cat([state[1], sdf], dim=1), sel, dim=1),
-            torch.take_along_dim(torch.cat([state[2], index], dim=1), sel, dim=1))
+    return (torch.gather(all_score, 1, sel),
+            torch.gather(torch.cat([state[1], sdf], dim=1), 1, sel),
+            torch.gather(torch.cat([state[2], index], dim=1), 1, sel))
 
 
 def sdf_guided_sample(
@@ -234,8 +235,8 @@ def sdf_guided_sample_coarse2fine(
     in_box = _in_bbox(pts, center, cam_intr, bbox, sdf_scale)
     score = torch.where(in_box, sdf_f.abs(), torch.full_like(sdf_f, float("inf")))
     sel = _smallest(score, num_points)
-    points = torch.take_along_dim(pts, sel[..., None], dim=1)
-    sdf = torch.take_along_dim(sdf_f, sel, dim=1)
+    points = torch.gather(pts, 1, sel[..., None].expand(-1, -1, 3))
+    sdf = torch.gather(sdf_f, 1, sel)
     return points, torch.clamp(sdf, -clamp, clamp)[..., None]
 
 
@@ -294,7 +295,7 @@ def sdf_guided_sample_hierarchical(
         else:
             keep = min(keep, score.shape[1])  # small lattices (tests)
         sel = _smallest(score, keep)
-        return torch.take_along_dim(bases, sel, dim=1), pts, sdf, sel
+        return torch.gather(bases, 1, sel), pts, sdf, sel
 
     f0 = factors[0]
     bases = _base_cells(bins_n, f0, dev).expand(b, -1)
@@ -303,6 +304,6 @@ def sdf_guided_sample_hierarchical(
         bases, _, _, _ = probe(child_bases(bases, pf, cf), cf, keep, final=False)
 
     _, pts, sdf, sel = probe(child_bases(bases, factors[-1], 1), 1, num_points, final=True)
-    points = torch.take_along_dim(pts, sel[..., None], dim=1)
-    sdf = torch.take_along_dim(sdf, sel, dim=1)
+    points = torch.gather(pts, 1, sel[..., None].expand(-1, -1, 3))
+    sdf = torch.gather(sdf, 1, sel)
     return points, torch.clamp(sdf, -clamp, clamp)[..., None]

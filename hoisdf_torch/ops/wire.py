@@ -11,11 +11,12 @@ and are cast back on the card; a mask that is not exactly binary stays f32.
 
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from hoisdf_torch.ops.device_cache import device_cache
 
 # Target keys that are binary masks (f32 {0,1} on the host).
 _BINARY_MASK_KEYS = ("hand_seg", "obj_seg")
@@ -26,7 +27,7 @@ def u8_lut_np() -> np.ndarray:
     return np.arange(256, dtype=np.float32) / 255.0
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _lut(device: torch.device) -> torch.Tensor:
     """The table on ``device``, made once per device: a step that built it
     from the host on every call would wait on the card for the copy.  A

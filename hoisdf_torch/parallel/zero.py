@@ -173,3 +173,8 @@ def load_full_state(state, network: Dict, optimizer: Dict) -> None:
     else:
         state.module.load_state_dict(network, strict=True)
     state.optimizer.load_state_dict(optimizer)
+    if state.zero == "zero1":
+        # ZeroRedundancyOptimizer.load_state_dict also copies the rank's entries
+        # into the wrapper's own ``state`` (Optimizer.load_state_dict), which
+        # nothing reads: a second device copy of the rank's moments
+        state.optimizer.state.clear()

@@ -20,7 +20,6 @@ import queue
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
-from contextlib import contextmanager
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -33,6 +32,7 @@ from hoisdf_torch.mano.model import load_mano_npz, make_synthetic_mano
 from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.ops import wire
 from hoisdf_torch.train import make_eval_step, resolve_device
+from hoisdf_torch.utils.profiling import StepStats
 
 INPUT_KEYS = ("img", "cam_intr", "mano_root", "obj_center_cam", "bbox_hand", "bbox_obj")
 # Outputs a serving caller gets (all batch-leading), in packing order.
@@ -44,26 +44,6 @@ IK_SERVE_KEYS = ("mano_shape", "hand_joints", "obj_rot", "obj_trans")
 # has run: a server with up to INPUT_SLOTS - 1 steps in flight never waits
 # for one.
 INPUT_SLOTS = 4
-
-
-class StepStats:
-    """Host-clock durations of completed calls."""
-
-    def __init__(self):
-        self.durations: List[float] = []
-
-    @contextmanager
-    def measure(self):
-        t0 = time.perf_counter()
-        yield
-        self.durations.append(time.perf_counter() - t0)
-
-    def summary(self) -> Dict[str, float]:
-        if not self.durations:
-            return {"n": 0}
-        ms = np.asarray(self.durations) * 1e3
-        return {"n": int(ms.size), "p50_ms": float(np.percentile(ms, 50)),
-                "p90_ms": float(np.percentile(ms, 90)), "mean_ms": float(ms.mean())}
 
 
 class _InputSlot:
@@ -115,8 +95,9 @@ class Predictor:
             self.model.load_state_dict(state_dict, strict=True)
         mano = (load_mano_npz(self.cfg.mano_model_path) if self.cfg.mano_model_path
                 else make_synthetic_mano(0))
-        self._eval_step = make_eval_step(self.cfg, self.model, ManoBuffers.from_model(mano),
-                                         supervise_sdf=False, device=self.device)
+        self.mano = ManoBuffers.from_model(mano, self.device)
+        self._eval_step = make_eval_step(self.cfg, self.model, self.mano, supervise_sdf=False,
+                                         device=self.device)
         inputs = synthetic_batch(self.cfg, batch_size)
         self._template = {k: inputs[k] for k in INPUT_KEYS}
         if transfer_dtype == "uint8":

@@ -142,25 +142,33 @@ def create_train_state(cfg: Config, model: HOISDF, steps_per_epoch: int = 1000, 
     ``cfg.reference_init`` the decoder, SDF decoders and transformers are
     first re-drawn by the original's train-mode init, from ``cfg.seed``.
 
-    With a ``mesh`` that holds a process group the state is data parallel:
-    the model in DDP (``zero="off"``), in DDP with ZeRO-1's optimizer
-    (``"zero1"``) or sharded by FSDP (``"fsdp"``), as
-    ``parallel/zero.py`` says.  Every rank must start from the same
+    With a ``mesh`` that holds a process group the state is data parallel
+    (:func:`make_data_parallel`).  Every rank must start from the same
     weights."""
-    if zero not in ZERO_MODES:
-        raise ValueError(f"zero={zero!r}; one of {ZERO_MODES}")
     dev = resolve_device(device)
     disable_tf32()
     if cfg.reference_init:
         apply_reference_init(model, torch.Generator().manual_seed(cfg.seed + 3))
     model.to(dev)
-    state = TrainState(model, make_optimizer(cfg, model), steps_per_epoch, mesh=mesh)
+    return make_data_parallel(TrainState(model, make_optimizer(cfg, model), steps_per_epoch),
+                              mesh, zero)
+
+
+def make_data_parallel(state: TrainState, mesh: Optional[Mesh], zero: str = "off"
+                       ) -> TrainState:
+    """A one-process state whose optimizer has not stepped, on ``mesh``:
+    without a process group as it is; with one the model in DDP
+    (``zero="off"``), in DDP with ZeRO-1's optimizer (``"zero1"``) or
+    sharded by FSDP (``"fsdp"``), as ``parallel/zero.py`` says."""
+    if zero not in ZERO_MODES:
+        raise ValueError(f"zero={zero!r}; one of {ZERO_MODES}")
+    state.mesh = mesh
     if mesh is None or not mesh.distributed:
         if zero != "off":
             raise ValueError(f"zero={zero!r} needs a process group")
         return state
     if zero == "off":
-        state.model = replicate(model, mesh)
+        state.model = replicate(state.model, mesh)
         return state
     return shard_state(state, mesh, shard_params=zero == "fsdp")
 

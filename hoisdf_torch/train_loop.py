@@ -33,8 +33,11 @@ debug images and the snapshots (gathered whole, in the one-process layout);
 the synthetic eval at a snapshot runs on every rank, the dataset's only in
 one process, as the JAX package's.
 
-Not ported yet: ``--backbone-init`` (the ImageNet graft, which needs converted
-torchvision weights).
+``--backbone-init PATH`` grafts a torchvision-layout ImageNet ResNet state
+dict (``.pth``) into the fresh state's backbone before ``--continue``
+(:func:`load_backbone_init`; the original's model-zoo init,
+common/nets/resnet.py:89-98), on every rank before the state is made data
+parallel.
 
 Usage:
     python -m hoisdf_torch.train_loop --setting dexycb --run_dir_name demo \\
@@ -67,8 +70,8 @@ from hoisdf_torch.mano.model import load_mano_npz, make_synthetic_mano
 from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.ops import wire
 from hoisdf_torch.parallel.mesh import init_distributed, make_mesh, rank_seed, shard_batch
-from hoisdf_torch.train import (ZERO_MODES, create_train_state, make_eval_step,
-                                make_train_step, presample_gate)
+from hoisdf_torch.train import (ZERO_MODES, create_train_state, make_data_parallel,
+                                make_eval_step, make_train_step, presample_gate)
 from hoisdf_torch.utils import checkpoint as ckpt_util
 from hoisdf_torch.utils.logger import colorlogger
 from hoisdf_torch.utils.timer import Timer
@@ -148,6 +151,38 @@ def eval_synthetic(cfg: Config, eval_step, mano: ManoBuffers, device) -> Tuple[D
     return preds, targets
 
 
+BACKBONE_PREFIX = "backbone_net.resnet."
+
+
+def load_backbone_init(state, path: str):
+    """Graft a torchvision-layout ImageNet ResNet state dict (``.pth``) into
+    the backbone of a one-process ``state`` (``backbone_net.resnet.*``), in
+    place, and return the state.  ``fc.*`` and ``num_batches_tracked`` are
+    dropped, as the JAX package's ``convert_torchvision_resnet`` drops them;
+    any other key the backbone lacks, any backbone key the file lacks, and
+    any shape that differs raise.  Nothing outside the backbone changes."""
+    if state.zero == "fsdp":
+        raise ValueError("load_backbone_init takes the state before FSDP shards it")
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    own = {k[len(BACKBONE_PREFIX):]: v for k, v in state.module.state_dict().items()
+           if k.startswith(BACKBONE_PREFIX) and not k.endswith("num_batches_tracked")}
+    graft = {k: v for k, v in raw.items()
+             if not k.startswith("fc.") and not k.endswith("num_batches_tracked")}
+    unmapped = sorted(set(graft) - set(own))
+    missing = sorted(set(own) - set(graft))
+    if unmapped or missing:
+        raise ValueError(f"{path}: not a torchvision ResNet of this backbone; "
+                         f"unmapped={unmapped[:10]} missing={missing[:10]}")
+    for k, v in graft.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, the backbone "
+                             f"{tuple(own[k].shape)}")
+    with torch.no_grad():
+        for k, v in graft.items():
+            own[k].copy_(v)
+    return state
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--setting", default="dexycb")
@@ -159,9 +194,10 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic batches at the tiny model size instead of a dataset")
-    p.add_argument("--backbone-init", default=None, metavar="SNAPSHOT_DIR",
-                   help="not ported: the ImageNet backbone graft needs converted "
-                        "torchvision weights")
+    p.add_argument("--backbone-init", default=None, metavar="PTH",
+                   help="initialize the ResNet backbone from a torchvision ImageNet state "
+                        "dict (.pth, fc.* dropped); offline equivalent of "
+                        "common/nets/resnet.py:89-98")
     p.add_argument("--iters-per-epoch", type=int, default=None)
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("--zero", choices=ZERO_MODES, default="off",
@@ -182,9 +218,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.backbone_init:
-        raise SystemExit("train_loop: --backbone-init is not ported: the ImageNet backbone "
-                         "graft needs converted torchvision weights (ROADMAP.md)")
+    if args.backbone_init and not os.path.isfile(args.backbone_init):
+        raise SystemExit(f"train_loop: --backbone-init {args.backbone_init}: not a file "
+                         "(a torchvision ResNet state dict, .pth)")
     overrides = dict(SYNTHETIC_TINY_OVERRIDES) if args.synthetic else {}
     for key, value in (("end_epoch", args.end_epoch),
                        ("point_sampling_epoch", args.point_sampling_epoch),
@@ -252,8 +288,11 @@ def main(argv=None) -> None:
                                  worker_mode=cfg.data_worker_mode)
         loaders.append(eval_loader)
 
-    state = create_train_state(cfg, build_model(cfg, cfg.seed), iters_per_epoch, device=device,
-                               mesh=mesh, zero=args.zero)
+    state = create_train_state(cfg, build_model(cfg, cfg.seed), iters_per_epoch, device=device)
+    if args.backbone_init:
+        load_backbone_init(state, args.backbone_init)
+        logger.info(f"backbone initialized from {args.backbone_init}")
+    state = make_data_parallel(state, mesh, args.zero)
     if args.zero != "off":
         logger.info(f"sharded train state over {mesh.world} ranks ({args.zero})")
     start_epoch = 0

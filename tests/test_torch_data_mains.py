@@ -140,8 +140,9 @@ def test_evaluate_main_on_the_eval_split(trees, tmp_path, setting):
     (["--backbone-init", "weights/"], "--backbone-init"),
 ])
 def test_train_loop_refuses_what_is_not_ported(argv, match):
-    """A path not ported is refused by name: a setting the port refuses (the
-    TPU's approximate top-k), a config field it does not have (a TPU
-    compiler knob), or a flag."""
+    """What the port cannot run is refused by name before any work: a setting
+    the port refuses (the TPU's approximate top-k), a config field it does
+    not have (a TPU compiler knob), or a flag given what it cannot use
+    (``--backbone-init`` without a state-dict file)."""
     with pytest.raises((SystemExit, TypeError, ValueError), match=match):
         train_loop.main(["--setting", "dexycb", "--cpu", *argv])

@@ -22,7 +22,8 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "hoisdf_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "torch_data_fixtures.py",
-        ROOT / "scripts" / "bisect_card_repeat.py"]
+        ROOT / "scripts" / "bisect_card_repeat.py", ROOT / "scripts" / "probe_zero_memory.py",
+        ROOT / "scripts" / "probe_serving_host.py"]
     assert len(files) > 15
     names = {str(f.relative_to(ROOT)) for f in files}
     for module in ("train.py", "train_loop.py", "losses.py", "ops/heatmap.py",
@@ -32,7 +33,10 @@ def test_port_imports_no_jax():
                    "data/image_io.py", "data/meshes.py", "predictor.py",
                    "native/__init__.py", "native/build.py", "ops/warp.py",
                    "models/experimental.py", "ops/selection_quality.py",
-                   "parallel/mesh.py", "parallel/zero.py", "parallel/dryrun.py"):
+                   "parallel/mesh.py", "parallel/zero.py", "parallel/dryrun.py",
+                   "tools/__init__.py", "tools/export.py", "tools/convert_mano_pkl.py",
+                   "tools/preprocess_sdf.py", "tools/synth_weights.py", "utils/profiling.py",
+                   "mano/demo.py", "ops/device_cache.py"):
         assert f"hoisdf_torch/{module}" in names, module
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]

@@ -227,12 +227,13 @@ def test_zero1_and_fsdp_keep_a_share_of_the_state_per_rank(session):
 def test_snapshots_resume_across_modes_and_world_sizes(session, source):
     """A 2-rank zero1 or fsdp snapshot, and a one-process one, resume at 2
     ranks in both modes: the model whole, every rank's moments its part of
-    the file's, and the step."""
+    the file's (held once: ZeRO-1's wrapper keeps no copy), and the step."""
     for zero in ("zero1", "fsdp"):
         for rank in session["ranks"]:
-            epoch, step, same_model, moments = rank["snapshots"][(source, zero)]
+            epoch, step, same_model, moments, copies = rank["snapshots"][(source, zero)]
             assert (epoch, step) == ((9, 1) if source == "single" else (0, 1))
             assert same_model and moments, (source, zero)
+            assert copies == 0, (source, zero, copies)
 
 
 @pytest.mark.parametrize("zero", ["zero1", "fsdp"])

@@ -346,12 +346,21 @@ def local_moments_match(state, optimizer_sd) -> bool:
     return seen > 0
 
 
+def wrapper_state_elements(state) -> int:
+    """Tensor elements that ZeRO-1's wrapper holds in its own ``state``
+    (beside its local optimizer's): none, or the moments are held twice."""
+    if state.zero != "zero1":
+        return 0
+    return sum(v.numel() for s in state.optimizer.state.values() if isinstance(s, dict)
+               for v in s.values() if torch.is_tensor(v) and v.dim() > 0)
+
+
 def snapshot_run(mesh: Mesh, cfg, batch, model_dir: str):
     """One step in zero1 and in fsdp, each saved as a snapshot (rank 0
     writes); then each snapshot, and the one-process one the parent wrote
     as epoch 9 of ``model_dir/single``, resumed into both states: whether
-    the model is the file's, and every rank's moments its part of the
-    file's."""
+    the model is the file's, every rank's moments its part of the file's,
+    and ZeRO-1's wrapper holding no second copy of them."""
     import os
 
     from hoisdf_torch.parallel.zero import full_model_state
@@ -378,7 +387,8 @@ def snapshot_run(mesh: Mesh, cfg, batch, model_dir: str):
             same_model = all(torch.equal(v, network[k])
                              for k, v in full_model_state(state).items())
             resumed[(source, zero)] = (got, state.step, same_model,
-                                       local_moments_match(state, snap["optimizer"]))
+                                       local_moments_match(state, snap["optimizer"]),
+                                       wrapper_state_elements(state))
     return resumed
 
 
