@@ -76,11 +76,14 @@ Phases, each printing one JSON line:
              frames to a BatchingServer (max_wait_ms 5, two steps in
              flight) for 10 s: frames/s, mean batch fill, request
              p50/p95/p99 (np.percentile), every response of its shape and
-             finite, kernel launches (counts zeroed just before).
+             finite, kernel launches (counts zeroed just before).  The
+             clients are hoisdf_torch/bench.py's (hoisdf-torch-bench
+             --serve).
    serve_poisson - run_poisson_load (seed 7, 10 s, u8, max_wait_ms 5) at
-             0.25, 0.5, 0.8 and 1.2 times serve_closed's frames/s: offered
-             rate, goodput, submitted and completed (which must be equal),
-             mean batch fill, p50/p95/p99.
+             0.25, 0.5, 0.8 and 1.2 times serve_closed's frames/s, through
+             the bench's serve_poisson: offered rate, goodput, submitted and
+             completed (which must be equal), dropped, mean batch fill,
+             p50/p95/p99.
    serve_async - then, on both wires: one warmed predict_async under
              torch.cuda.set_sync_debug_mode (sync_sites: where a "warn" run
              saw a synchronizing call; then "error", the gate);
@@ -88,6 +91,15 @@ Phases, each printing one JSON line:
              eight batches; predict_async's host ms (median of 20) beside
              the step's device ms (torch.profiler).  Then the sync check on
              ho3d (DecoderBig) at u8.
+   bench   - hoisdf-torch-bench's headline at its defaults (dexycb, bf16,
+             batch 22, hier, u8 wire, 10 steps, 3 runs) through the bench's
+             functions: pipelined frames/s, blocking p50/p90 per batch and
+             per frame, host and device ms, launches, FLOPs per frame
+             (FlopCounterMode), MFU against the bf16 dense peak, peak
+             memory, each the median of the runs with its spread.  Gates:
+             MFU known, 8 launches of the SDF MLP and 11 of the gather a
+             step, no plain version run by the port so far, and the FLOPs
+             through the ops equal to a step's with the plain SDF MLP.
    export  - the u8 serving Predictor's step exported with torch.export
              (tools/export.py) at batch 22, fixed and polymorphic, each
              loaded back and called on the card (the polymorphic one also at
@@ -206,14 +218,14 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM
 H100_F32_FLOPS = 67e12  # CUDA-core f32 peak
 H100_HBM_BYTES = 3.35e12
 
-SDF_TPU = "hoisdf_tpu/ops/pallas/sdf_mlp.py:63"
+SDF_TPU = "hoisdf_tpu/ops/pallas/sdf_mlp.py:64"
 # Rows per image that the dexycb hier cascade scores, stage by stage: the
 # hand field, then the object field.  One serving step launches the SDF MLP
 # once for each, on batch x rows.
 SERVING_ROWS_PER_IMAGE = (512, 1024, 1792, 3584, 512, 832, 1472, 2944)
 # around the f32 tile (32 rows), 48 rows, and the bf16 tile (64 rows)
 RAGGED_ROWS = (1, 31, 32, 33, 47, 48, 49, 63, 64, 65, 127, 128, 129, 255, 257)
-GATHER_TPU = "hoisdf_tpu/ops/pallas/gather_lerp.py:89"
+GATHER_TPU = "hoisdf_tpu/ops/pallas/gather_lerp.py:90"
 GATHER_BWD_TPU = "hoisdf_tpu/ops/grid_sample.py:239"  # _gsb_fast_bwd (a custom VJP)
 
 
@@ -1042,6 +1054,7 @@ def sampler_eval_step(name: str, over: dict, device, batch_size: int,
     from hoisdf_torch.ops import wire
     from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
     from hoisdf_torch.train import make_eval_step
+    from hoisdf_torch.utils.profiling import device_breakdown
 
     cfg = get_config(setting, compute_dtype="bfloat16", transfer_dtype="uint8", **over)
     mano = ManoBuffers.from_model(make_synthetic_mano(0))
@@ -1235,6 +1248,7 @@ def evaluate_preset(setting: str, device, batch_size: int = 22, n_batches: int =
     from hoisdf_torch.ops import wire
     from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
     from hoisdf_torch.train import make_eval_step
+    from hoisdf_torch.utils.profiling import device_breakdown
 
     cfg = get_config(setting, compute_dtype="bfloat16", transfer_dtype="uint8")
     mano = ManoBuffers.from_model(make_synthetic_mano(0))
@@ -1490,6 +1504,7 @@ def serve_async(preds, frames, cfg, batch_size: int, device):
     from hoisdf_torch.data.synthetic import synthetic_batch
     from hoisdf_torch.ops import wire
     from hoisdf_torch.predictor import INPUT_KEYS, Predictor
+    from hoisdf_torch.utils.profiling import device_breakdown
 
     res = {"phase": "serve_async", "setting": cfg.setting, "batch": batch_size,
            "compute_dtype": cfg.compute_dtype, "wires": {}}
@@ -1537,15 +1552,6 @@ def serve_async(preds, frames, cfg, batch_size: int, device):
     return res
 
 
-def _percentiles(lat_s):
-    import numpy as np
-
-    lat = np.asarray(lat_s) * 1e3
-    if not lat.size:
-        return {"p50_ms": None, "p95_ms": None, "p99_ms": None}
-    return {f"p{q}_ms": float(np.percentile(lat, q)) for q in (50, 95, 99)}
-
-
 def single_frames(predictor, frames):
     """The serving batches of ``predictor``'s wire as single frames."""
     return [{k: v[i] for k, v in fr.items()} for fr in frames[predictor.transfer_dtype]
@@ -1555,62 +1561,19 @@ def single_frames(predictor, frames):
 def serve_closed(predictor, frames, cfg, clients: int, device, seconds: float = SERVE_SECONDS,
                  max_wait_ms: float = 5.0):
     """``clients`` closed-loop clients, each submitting one frame at a time to
-    a BatchingServer for ``seconds`` (as ``bench_components.py --serve``):
-    frames/s, mean batch fill, request p50/p95/p99; every response has its
-    shapes and is finite; kernel counts zeroed just before, read just
-    after."""
-    import threading
+    a BatchingServer for ``seconds`` (``hoisdf_torch.bench.serve_closed``,
+    ``hoisdf-torch-bench --serve``): frames/s, mean batch fill, request
+    p50/p95/p99; every response has its shapes and is finite; kernel counts
+    zeroed just before, read just after."""
+    from hoisdf_torch import bench
 
-    import numpy as np
-    import torch
-
-    from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
-    from hoisdf_torch.predictor import BatchingServer
-
-    pool = single_frames(predictor, frames)
-    shapes = _serve_shapes(cfg)
-    latencies, bad, errors, lock = [], [0], [], threading.Lock()
-
-    def client(i: int):
-        frame = pool[i % len(pool)]
-        try:
-            while time.perf_counter() < stop_at:
-                t0 = time.perf_counter()
-                out = srv.submit(frame).result(timeout=300)
-                dt = time.perf_counter() - t0
-                good = all(out[k].shape == s and np.isfinite(out[k]).all()
-                           for k, s in shapes.items())
-                with lock:
-                    latencies.append(dt)
-                    bad[0] += not good
-        except Exception as exc:  # recorded; the phase fails below
-            with lock:
-                errors.append(repr(exc)[:200])
-
-    torch.cuda.synchronize(device)
-    reset_launch_counts()
-    with BatchingServer(predictor, max_wait_ms=max_wait_ms) as srv:
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
-        t0 = time.perf_counter()
-        stop_at = t0 + seconds
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=seconds + 600)
-        elapsed = time.perf_counter() - t0
-        served, batches = srv.frames_served, srv.batches_dispatched
-    torch.cuda.synchronize(device)
-    counts = dict(launch_counts)
+    run = bench.serve_closed(predictor, single_frames(predictor, frames), clients, seconds,
+                             max_wait_ms)
+    counts, batches = run["launches"], run["batches"]
     res = {"phase": "serve_closed", "setting": cfg.setting, "batch": predictor.batch_size,
-           "wire": predictor.transfer_dtype, "clients": clients, "seconds": elapsed,
-           "max_wait_ms": max_wait_ms, "frames_per_s": served / elapsed,
-           "frames_served": served, "batches": batches,
-           "mean_batch_fill": served / max(batches, 1), **_percentiles(latencies),
-           "responses": len(latencies), "bad_responses": bad[0], "errors": errors[:5],
-           "launches": counts,
-           "launches_per_batch": {k: v / max(batches, 1) for k, v in counts.items()}}
-    res["ok"] = (not errors and bad[0] == 0 and len(latencies) == served > 0
-                 and not any(t.is_alive() for t in threads)
+           "wire": predictor.transfer_dtype, **run}
+    res["ok"] = (not run["errors"] and run["bad_responses"] == 0
+                 and run["responses"] == run["frames_served"] > 0 and not run["threads_alive"]
                  and counts["sdf_mlp"] >= 8 * batches and counts["gather_lerp"] >= 9 * batches)
     emit(res)
     if not res["ok"]:
@@ -1621,24 +1584,18 @@ def serve_closed(predictor, frames, cfg, clients: int, device, seconds: float = 
 
 def serve_poisson(predictor, frames, cfg, capacity_fps: float, seconds: float = SERVE_SECONDS,
                   max_wait_ms: float = 5.0, seed: int = 7):
-    """run_poisson_load at each of POISSON_LOADS times ``capacity_fps`` (the
+    """``hoisdf_torch.bench.serve_poisson`` (``hoisdf-torch-bench
+    --serve-poisson``) at each of POISSON_LOADS times ``capacity_fps`` (the
     closed-loop frames/s), one BatchingServer per rate: offered rate,
-    goodput, submitted and completed, mean batch fill, p50/p95/p99.  Fails
-    unless every submitted request completed at every rate."""
-    from hoisdf_torch.predictor import BatchingServer, run_poisson_load
+    goodput, submitted, completed and dropped, mean batch fill,
+    p50/p95/p99.  Fails unless every submitted request completed at every
+    rate."""
+    from hoisdf_torch import bench
 
-    pool = single_frames(predictor, frames)
-    rates = []
-    for load in POISSON_LOADS:
-        with BatchingServer(predictor, max_wait_ms=max_wait_ms) as srv:
-            rep = run_poisson_load(srv, pool, load * capacity_fps, seconds, seed=seed)
-            batches = srv.batches_dispatched
-        rates.append({"load": load, "offered_hz": rep["offered_hz"],
-                      "goodput_hz": rep["goodput_hz"], "submitted": rep["submitted"],
-                      "completed": rep["completed"], "elapsed_s": rep["elapsed_s"],
-                      "batches": batches,
-                      "mean_batch_fill": rep["completed"] / max(batches, 1),
-                      **_percentiles(rep["latencies_s"])})
+    runs = bench.serve_poisson(predictor, single_frames(predictor, frames),
+                               [load * capacity_fps for load in POISSON_LOADS], seconds,
+                               max_wait_ms, seed)
+    rates = [{"load": load, **r} for load, r in zip(POISSON_LOADS, runs)]
     res = {"phase": "serve_poisson", "setting": cfg.setting, "batch": predictor.batch_size,
            "wire": predictor.transfer_dtype, "max_wait_ms": max_wait_ms, "seed": seed,
            "seconds": seconds, "capacity_fps": capacity_fps, "rates": rates}
@@ -1649,50 +1606,56 @@ def serve_poisson(predictor, frames, cfg, capacity_fps: float, seconds: float = 
     return res
 
 
-PROFILE_GROUPS = ("gather_lerp_bwd", "gather_lerp", "sdf_mlp", "Memcpy")
-
-
 def profile_breakdown(fn, steps: int, phase: str, **extra):
     """Device time by kernel name over ``steps`` calls of ``fn``
-    (torch.profiler), grouped: each kernel of the port, the host-device
-    copies, and everything else."""
+    (``utils/profiling.py::device_breakdown``), grouped: each kernel of the
+    port, the host-device copies, and everything else."""
+    from hoisdf_torch.utils.profiling import device_breakdown
+
     out = {"phase": phase, "steps": steps, **extra, **device_breakdown(fn, steps)}
     emit(out)
     return out
 
 
-def device_breakdown(fn, steps: int):
-    """``profile_breakdown``'s numbers, without a line of their own."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+BENCH_LAUNCHES = {"sdf_mlp": 8, "gather_lerp": 11}  # a dexycb eval step's, hier, supervised
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us / steps / 1e3, ev.count // steps, ev.key[:80]))
-    rows.sort(reverse=True)
-    groups = {}
-    for ms, calls, key in rows:
-        name = next((g for g in PROFILE_GROUPS if g in key), "other")
-        acc = groups.setdefault(name, {"ms": 0.0, "launches": 0})
-        acc["ms"] += ms
-        acc["launches"] += calls
-    # the operators that launched the most device time, kernels included
-    ops = sorted(((getattr(ev, "device_time_total", 0.0) / steps / 1e3, ev.count // steps,
-                   ev.key[:60]) for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CPU
-                  and ev.key.startswith("aten::")), reverse=True)
-    return {"device_ms_per_step": sum(r[0] for r in rows),
-            "launches_per_step": sum(r[1] for r in rows), "by_group": groups,
-            "top": [{"ms": r[0], "calls": r[1], "kernel": r[2]} for r in rows[:15]],
-            "top_ops": [{"ms": r[0], "calls": r[1], "op": r[2]} for r in ops[:12]]}
+
+def bench_phase(device, plain_calls: list, batch_size: int = 22) -> dict:
+    """``hoisdf-torch-bench``'s headline at its defaults (dexycb, batch 22,
+    bf16, hier, u8 wire, 10 steps, 3 runs) through the bench's own
+    functions: the ``bench`` line (its fields and the phase's seconds).
+    Gates: ``mfu`` known; 8 launches of the SDF MLP and 11 of the gather a
+    step; no plain version called by the port so far (``plain_guard``); and
+    ``flops_per_frame``, counted through the ops, equal to the count of one
+    more step with ``sdf_mlp_plain`` in place of the op (its matrix
+    products counted by ``FlopCounterMode`` itself)."""
+    from hoisdf_torch import bench
+    from hoisdf_torch.models import hoisdf as hoisdf_model
+    from hoisdf_torch.ops.kernels import sdf_mlp as sdf_mlp_module
+
+    t0 = time.perf_counter()
+    cfg = bench.build_config("dexycb")
+    step = bench.make_bench_step(cfg, device)
+    inputs = bench.eval_inputs(cfg, batch_size, device)
+    res = bench.headline(cfg, step, inputs, batch_size, device, runs=3, card=bench.smi())
+    kernel = hoisdf_model.sdf_mlp
+    hoisdf_model.sdf_mlp = lambda x, w: sdf_mlp_module.sdf_mlp_plain(x, w.plain)
+    try:
+        plain_flops = bench.count_flops(lambda: step(inputs)) / batch_size
+    finally:
+        hoisdf_model.sdf_mlp = kernel
+    res = {"phase": "bench", **res, "flops_per_frame_plain_mlp": plain_flops,
+           "plain_guard": plain_calls[:5], "seconds": time.perf_counter() - t0}
+    res["ok"] = (res["mfu"] is not None and not plain_calls
+                 and res["launches_sdf_mlp"] == BENCH_LAUNCHES["sdf_mlp"]
+                 and res["launches_gather_lerp"] == BENCH_LAUNCHES["gather_lerp"]
+                 and res["flops_per_frame"] == plain_flops > 0)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("bench phase failed: MFU unknown, the kernels' launches a step "
+                             f"are not {BENCH_LAUNCHES}, the port ran a plain version, or "
+                             "the FLOPs through the ops differ from the plain MLP's")
+    return res
 
 
 def profile_step(predictor, frames_seed: int = 7):
@@ -1753,6 +1716,7 @@ def export_phase(pred, frames) -> dict:
     from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
     from hoisdf_torch.predictor import INPUT_KEYS
     from hoisdf_torch.tools.export import OUTPUT_KEYS, export_serving_module
+    from hoisdf_torch.utils.profiling import device_breakdown
 
     dev, batch = pred.device, pred.batch_size
     res = {"phase": "export", "setting": pred.cfg.setting, "batch": batch,
@@ -2729,7 +2693,7 @@ def _world1_child(mesh, cfg, batch_size: int):
     from hoisdf_torch.mano.layer import ManoBuffers
     from hoisdf_torch.mano.model import make_synthetic_mano
     from hoisdf_torch.ops.kernels import launch_counts, reset_launch_counts
-    from hoisdf_torch.parallel.zero import full_state_dicts, load_full_state
+    from hoisdf_torch.parallel.zero import full_state_dicts, gather_full, load_full_state
     from hoisdf_torch.train import create_train_state, make_train_step
 
     dev = mesh.device
@@ -2744,9 +2708,7 @@ def _world1_child(mesh, cfg, batch_size: int):
                 for k, v in tree.items()}
 
     def grads_of(state):
-        from torch.distributed.tensor import DTensor
-
-        return _groups_of({n: (p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad)
+        return _groups_of({n: gather_full(p.grad, mesh, name=n)
                            for n, p in state.module.named_parameters()}, names)
 
     out, selections, ref_states, ref = {}, [], [], None
@@ -2864,24 +2826,11 @@ def world1_check(cfg, batch_size: int, device, workdir: str) -> dict:
 def _host_grads(module, mesh) -> dict:
     """The parameters' gradients, whole, on the host of every rank: an FSDP
     gradient (a DTensor sharded on dim 0) is gathered from each rank's local
-    shard as a host copy (``all_gather_object``), never by a collective on
-    the card's tensors over gloo."""
-    import torch
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Shard
+    shard as a host copy (``parallel.zero.gather_full``)."""
+    from hoisdf_torch.parallel.zero import gather_full
 
-    out = {}
-    for n, p in module.named_parameters():
-        g = p.grad
-        if isinstance(g, DTensor):
-            if tuple(g.placements) != (Shard(0),):
-                raise AssertionError(f"{n}: FSDP gradient placed as {g.placements}")
-            parts = [None] * mesh.world
-            dist.all_gather_object(parts, g.to_local().detach().cpu(), group=mesh.group)
-            out[n] = torch.cat(parts).reshape(g.shape)
-        else:
-            out[n] = g.detach().cpu()
-    return out
+    return {n: gather_full(p.grad, mesh, name=n).detach().cpu()
+            for n, p in module.named_parameters()}
 
 
 def _two_ranks_child(mesh, cfg, ref_path: str):
@@ -3230,6 +3179,8 @@ def _phases(device, smi, native, t_start, mark, plain_calls) -> int:
     serve_async(predictors, frames, serve_cfg, serve_batch, device)
     profile_step(predictors["float32"])
     mark("serving")
+    benched = bench_phase(device, plain_calls, serve_batch)
+    mark("bench")
     exported = export_phase(predictors["uint8"], frames["uint8"])
     profile_trace_phase(predictors["uint8"], frames["uint8"])
     del predictors
@@ -3323,6 +3274,7 @@ def _phases(device, smi, native, t_start, mark, plain_calls) -> int:
     export_launches = exported["programs"]["fixed"]["calls"][str(serve_batch)]["launches"]
     for entry in kernels[:2]:  # launches in one call of the exported serving program
         entry["launches_export"] = export_launches[entry["name"]]
+        entry["launches_bench_per_step"] = benched[f"launches_{entry['name']}"]
     for entry in kernels:  # launches in each preset's train phase and under each wrapper
         entry["launches_train"] = {s: r["launches"][entry["name"]] for s, r in trains.items()}
         entry["launches_parallel"] = {m: par["world1"][m]["launches"][entry["name"]]

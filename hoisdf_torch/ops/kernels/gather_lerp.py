@@ -25,6 +25,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from hoisdf_torch.ops.kernels import launch_counts
 from hoisdf_torch.ops.kernels.build import BWD_COPIES_BYTES, library
@@ -329,3 +330,13 @@ def _gather_lerp_backward(ctx, g):
 
 
 _gather_lerp_op.register_autograd(_gather_lerp_backward, setup_context=_gather_lerp_setup)
+
+
+@register_flop_formula(torch.ops.hoisdf_torch.gather_lerp)
+def _gather_lerp_flops(grid_shape, maps_shapes, nearest, *, out_shape=None, **kwargs) -> int:
+    """0.  MFU counts, as ``FlopCounterMode`` does, the FLOPs of matrix
+    products, convolutions and attention, which the card's tensor cores
+    run; a bilinear lerp is four loads and three fused multiply-adds per
+    value, work bounded by the bytes it moves, not by FLOPs.  Registered
+    so that the count says so rather than skipping an unknown op."""
+    return 0

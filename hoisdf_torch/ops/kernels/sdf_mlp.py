@@ -13,6 +13,7 @@ import ctypes
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from hoisdf_torch.ops.device_cache import device_cache
 from hoisdf_torch.ops.kernels import launch_counts
@@ -225,6 +226,17 @@ def _sdf_mlp_op(x: torch.Tensor, weights: List[torch.Tensor], stages: torch.Tens
 @_sdf_mlp_op.register_fake
 def _(x, weights, stages, vectors):
     return x.new_empty((x.shape[0], 1), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.hoisdf_torch.sdf_mlp)
+def _sdf_mlp_flops(x_shape, weights_shapes, stages_shape, vectors_shape, *, out_shape=None,
+                   **kwargs) -> int:
+    """2 x rows x the sum of in x out over the five layers, layer 2's input
+    widened by the skip concat ``[h1 | x]``: the products of
+    :func:`sdf_mlp_plain`'s matrix products, as ``FlopCounterMode`` counts
+    them (bias adds and activations are not counted).  Without it the
+    counter would see the op as an opaque call and count nothing."""
+    return 2 * x_shape[0] * sum(w[0] * w[1] for w in weights_shapes[0::2])
 
 
 @_sdf_mlp_op.register_kernel("cuda")

@@ -30,6 +30,7 @@ from __future__ import annotations
 import contextlib
 from typing import Dict, Iterator, Optional, Tuple
 
+import torch
 import torch.distributed as dist
 from torch import nn
 
@@ -113,10 +114,37 @@ def unsharded(*modules: nn.Module) -> Iterator[None]:
             m.reshard()
 
 
-def _full(v):
-    from torch.distributed.tensor import DTensor
+def _group_of(mesh_or_group):
+    """The process group of a ``Mesh``, a 1-D ``DeviceMesh`` or a group."""
+    if isinstance(mesh_or_group, Mesh):
+        return mesh_or_group.group
+    if hasattr(mesh_or_group, "get_group"):
+        return mesh_or_group.get_group()
+    return mesh_or_group
 
-    return v.full_tensor() if isinstance(v, DTensor) else v
+
+def gather_full(t, mesh_or_group=None, name: str = "tensor"):
+    """``t`` whole on every rank: a DTensor placed ``(Shard(0),)`` on the 1-D
+    FSDP mesh is gathered from each rank's local shard as a detached host
+    copy (``all_gather_object`` over the group of ``mesh_or_group``, by
+    default the tensor's own mesh), concatenated, trimmed to ``t.shape`` and
+    put on ``t``'s device; a plain tensor passes through unchanged.  Every
+    rank calls it together.  It uses neither DTensor's redistribution nor
+    functional collectives: on gloo their ``wait_tensor`` crashed a rank.
+    Any other placement raises."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    if tuple(t.placements) != (Shard(0),):
+        raise ValueError(f"gather_full: {name} is placed as {tuple(t.placements)}, "
+                         "not (Shard(0),) on a 1-D mesh")
+    group = _group_of(t.device_mesh if mesh_or_group is None else mesh_or_group)
+    local = t.to_local().detach()
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, local.cpu(), group=group)
+    full = torch.cat(parts)[:t.shape[0]].reshape(t.shape)
+    return full.to(local.device)
 
 
 def _like(full: torch.Tensor, ref):
@@ -134,7 +162,7 @@ def full_model_state(state) -> Dict:
     """The bare model's state dict, whole, on every rank (FSDP gathers its
     shards: every rank calls it)."""
     if state.zero == "fsdp":
-        return {k: _full(v) for k, v in state.model.state_dict().items()}
+        return {k: gather_full(v, name=k) for k, v in state.model.state_dict().items()}
     return state.module.state_dict()
 
 
@@ -148,7 +176,8 @@ def full_state_dicts(state) -> Tuple[Optional[Dict], Optional[Dict]]:
     network = full_model_state(state)
     if state.zero == "fsdp":
         opt = state.optimizer.state_dict()
-        opt["state"] = {i: {k: _full(v) for k, v in s.items()}
+        opt["state"] = {i: {k: gather_full(v, name=f"moment {i} {k}")
+                            for k, v in s.items()}
                         for i, s in opt["state"].items()}
     elif state.zero == "zero1":
         state.optimizer.consolidate_state_dict(to=0)

@@ -116,6 +116,11 @@ class Predictor:
         self._out_lock = threading.Lock()
         self.stats = StepStats()
 
+    @property
+    def output_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Each output's per-frame shape, in packing order."""
+        return dict(self._pack_layout)
+
     def warmup(self) -> None:
         self.materialize(*self.predict_async(self._template))
 

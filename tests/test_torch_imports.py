@@ -36,7 +36,7 @@ def test_port_imports_no_jax():
                    "parallel/mesh.py", "parallel/zero.py", "parallel/dryrun.py",
                    "tools/__init__.py", "tools/export.py", "tools/convert_mano_pkl.py",
                    "tools/preprocess_sdf.py", "tools/synth_weights.py", "utils/profiling.py",
-                   "mano/demo.py", "ops/device_cache.py"):
+                   "mano/demo.py", "ops/device_cache.py", "bench.py"):
         assert f"hoisdf_torch/{module}" in names, module
     bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]

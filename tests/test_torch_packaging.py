@@ -24,7 +24,8 @@ def test_port_sources_ship_as_package_data():
 
 PORT_SCRIPTS = {"hoisdf-torch-train": "hoisdf_torch.train_loop:main",
                 "hoisdf-torch-eval": "hoisdf_torch.evaluate:main",
-                "hoisdf-torch-export": "hoisdf_torch.tools.export:main"}
+                "hoisdf-torch-export": "hoisdf_torch.tools.export:main",
+                "hoisdf-torch-bench": "hoisdf_torch.bench:main"}
 
 
 def test_port_console_scripts_beside_the_jax_ones():

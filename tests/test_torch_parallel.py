@@ -259,6 +259,24 @@ def test_two_rank_snapshot_has_the_one_process_layout_and_loads_there(session, c
             assert torch.equal(opt[i][k], v), (i, k)
 
 
+def test_gather_full_joins_uneven_fsdp_shards(session):
+    """``gather_full`` (what the snapshots and whole gradients go through)
+    joins an FSDP parameter's shards of 3 and 2 rows into the whole tensor,
+    bitwise, on both ranks and through either mesh; another placement
+    raises, naming the tensor; a plain tensor passes through."""
+    for rank, r in enumerate(session["ranks"]):
+        got = r["gather_full"]
+        assert got["local_rows"] == {"weight": (3, 2)[rank], "bias": (3, 2)[rank]}
+        for way in ("through_mesh", "own_mesh"):
+            assert set(got[way]) == {"weight", "bias"}
+            for n, v in got["whole"].items():
+                assert torch.equal(got[way][n], v), (rank, way, n)
+        assert "ones" in got["replicated_error"] and "Replicate" in got["replicated_error"]
+        assert got["plain_passes"]
+    assert torch.equal(session["ranks"][0]["gather_full"]["whole"]["weight"],
+                       session["ranks"][1]["gather_full"]["whole"]["weight"])
+
+
 # ---- the loader's default shard ---------------------------------------------------
 
 def test_loader_default_shard_follows_the_group(session):

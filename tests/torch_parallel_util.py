@@ -112,15 +112,10 @@ def global_batch(cfg, n: int, seed: int = 3):
 
 
 def _full_grads(module) -> Dict[str, torch.Tensor]:
-    from torch.distributed.tensor import DTensor
+    from hoisdf_torch.parallel.zero import gather_full
 
-    out = {}
-    for n, p in module.named_parameters():
-        g = p.grad
-        if g is None:
-            continue
-        out[n] = (g.full_tensor() if isinstance(g, DTensor) else g).detach().clone()
-    return out
+    return {n: gather_full(p.grad, name=n).detach().clone()
+            for n, p in module.named_parameters() if p.grad is not None}
 
 
 def train_run(mesh: Optional[Mesh], cfg, batch, branches, zero: str = "off", ref=None, *,
@@ -410,6 +405,41 @@ def loader_run(mesh: Optional[Mesh]):
     return out
 
 
+def gather_full_run(mesh: Mesh):
+    """``parallel.zero.gather_full`` on an FSDP-sharded ``Linear(3, 5)``: its
+    weight [5, 3] and bias [5] split into shards of 3 and 2 rows on two
+    ranks.  The whole parameters (the same seeded values on every rank),
+    each rank's shard rows, the parameters gathered through the port's
+    ``Mesh`` and through the tensor's own mesh, the error that a replicated
+    DTensor raises, and whether a plain tensor passes through as itself."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from hoisdf_torch.parallel.zero import gather_full
+
+    lin = torch.nn.Linear(3, 5)
+    with torch.no_grad():
+        for i, p in enumerate(lin.parameters()):
+            p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(i)))
+    whole = {n: p.detach().clone() for n, p in lin.named_parameters()}
+    dmesh = init_device_mesh("cpu", (mesh.world,))
+    fully_shard(lin, mesh=dmesh)
+    params = dict(lin.named_parameters())
+    out = {"whole": whole,
+           "local_rows": {n: p.to_local().shape[0] for n, p in params.items()},
+           "through_mesh": {n: gather_full(p, mesh, name=n) for n, p in params.items()},
+           "own_mesh": {n: gather_full(p, name=n) for n, p in params.items()}}
+    try:
+        gather_full(distribute_tensor(torch.ones(4), dmesh, [Replicate()]), name="ones")
+        out["replicated_error"] = None
+    except ValueError as exc:
+        out["replicated_error"] = str(exc)
+    plain = torch.ones(3)
+    out["plain_passes"] = gather_full(plain, mesh) is plain
+    return out
+
+
 def session(mesh: Mesh, cfg, batches, refs, model_dir: str):
     """Every check of ``tests/test_torch_parallel.py`` that needs a group,
     in one run of the ranks: the train steps of each mode against the
@@ -425,4 +455,5 @@ def session(mesh: Mesh, cfg, batches, refs, model_dir: str):
     out["dropout"] = dropout_run(mesh)
     out["snapshots"] = snapshot_run(mesh, cfg, batches["steps"], model_dir)
     out["loader"] = loader_run(mesh)
+    out["gather_full"] = gather_full_run(mesh)
     return out
