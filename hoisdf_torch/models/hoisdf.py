@@ -26,6 +26,12 @@ supervised SDF queries and the token gather differentiate through
 ``gather_lerp``'s backward kernel.  The sampler runs without gradients and
 without dropout in every mode (the JAX package's kernel route; its CPU route
 applies the decoder's dropout inside the sampler in train mode).
+
+While a ``torch.profiler`` runs, ``forward`` records its stages as spans
+(``utils/profiling.py``), shared by the eval and train steps:
+``model.backbone``, ``model.decoder``, ``model.sdf_supervise``,
+``model.sampler`` (field-guided or presampled), ``model.field_queries``,
+``model.tokens``, ``model.transformers`` and ``model.heads``.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from hoisdf_torch.ops.point_sampling import (
     sdf_guided_sample_hierarchical,
 )
 from hoisdf_torch.parallel.zero import unsharded
+from hoisdf_torch.utils.profiling import span
 
 
 class MLP(nn.Module):
@@ -277,106 +284,116 @@ class HOISDF(nn.Module):
         mano_root, obj_center = batch["mano_root"], batch["obj_center_cam"]
         cam_intr = batch["cam_intr"]
 
-        img = batch["img"].to(dt).permute(0, 3, 1, 2)  # a channels_last NCHW view
-        img_feat, skips = self.backbone_net["resnet"](img)
-        pyr, heads = self.decoder_net["resnet_decoder"](img_feat, skips)
-        out["decoder_heads"] = heads.permute(0, 2, 3, 1).float()
-        pyramid = {k: _nhwc(v) for k, v in pyr.items()}
+        with span("model.backbone"):
+            img = batch["img"].to(dt).permute(0, 3, 1, 2)  # a channels_last NCHW view
+            img_feat, skips = self.backbone_net["resnet"](img)
+        with span("model.decoder"):
+            pyr, heads = self.decoder_net["resnet_decoder"](img_feat, skips)
+            out["decoder_heads"] = heads.permute(0, 2, 3, 1).float()
+            pyramid = {k: _nhwc(v) for k, v in pyr.items()}
 
         if supervise_sdf:
-            out["hand_sdf_pred"], hand_logits = self.sdf_forward(
-                pyramid, batch["hand_sdf_points"], mano_root, cam_intr,
-                c.hand_sdf_scale, "hand", generator)
-            out["obj_sdf_pred"], obj_logits = self.sdf_forward(
-                pyramid, batch["obj_sdf_points"], obj_center, cam_intr,
-                c.obj_sdf_scale, "obj", generator)
-            if hand_logits is not None:
-                out["hand_cls_logits"] = hand_logits.float()
-                out["obj_cls_logits"] = obj_logits.float()
+            with span("model.sdf_supervise"):
+                out["hand_sdf_pred"], hand_logits = self.sdf_forward(
+                    pyramid, batch["hand_sdf_points"], mano_root, cam_intr,
+                    c.hand_sdf_scale, "hand", generator)
+                out["obj_sdf_pred"], obj_logits = self.sdf_forward(
+                    pyramid, batch["obj_sdf_points"], obj_center, cam_intr,
+                    c.obj_sdf_scale, "obj", generator)
+                if hand_logits is not None:
+                    out["hand_cls_logits"] = hand_logits.float()
+                    out["obj_cls_logits"] = obj_logits.float()
 
-        if use_presampled:
-            def jitter(pts):  # uniform in [-dist_range, dist_range)
-                u = torch.rand(pts.shape, generator=generator, device=pts.device)
-                return pts + (u * 2.0 - 1.0) * dist_range
+        with span("model.sampler"):
+            if use_presampled:
+                def jitter(pts):  # uniform in [-dist_range, dist_range)
+                    u = torch.rand(pts.shape, generator=generator, device=pts.device)
+                    return pts + (u * 2.0 - 1.0) * dist_range
 
-            hand_points = jitter(batch["hand_pre_points"])
-            obj_points = jitter(batch["obj_pre_points"])
-            hand_sdf, _ = self.sdf_forward(pyramid, hand_points, mano_root, cam_intr,
-                                           c.hand_sdf_scale, "hand", generator)
-            obj_sdf, _ = self.sdf_forward(pyramid, obj_points, obj_center, cam_intr,
-                                          c.obj_sdf_scale, "obj", generator)
-            hand_posenc = nerf_positional_encoding(hand_points, c.nerf_num_freqs)
-            obj_posenc = nerf_positional_encoding(obj_points, c.nerf_num_freqs)
-        elif c.sdf_infer_mode == "hier" and c.paired_sdf_infer:
-            (hand_points, hand_sdf, hand_posenc), (obj_points, obj_sdf, obj_posenc) = \
-                paired_sdf_infer(self, pyramid, mano_root, obj_center, cam_intr,
-                                 batch["bbox_hand"], batch["bbox_obj"])
-        else:
-            hand_points, hand_sdf, hand_posenc = self.sdf_infer(
-                pyramid, mano_root, cam_intr, batch["bbox_hand"], c.hand_sdf_scale,
-                c.num_samp_hand, "hand")
-            obj_points, obj_sdf, obj_posenc = self.sdf_infer(
-                pyramid, obj_center, cam_intr, batch["bbox_obj"], c.obj_sdf_scale,
-                c.num_samp_obj, "obj")
+                hand_points = jitter(batch["hand_pre_points"])
+                obj_points = jitter(batch["obj_pre_points"])
+                hand_sdf, _ = self.sdf_forward(pyramid, hand_points, mano_root, cam_intr,
+                                               c.hand_sdf_scale, "hand", generator)
+                obj_sdf, _ = self.sdf_forward(pyramid, obj_points, obj_center, cam_intr,
+                                              c.obj_sdf_scale, "obj", generator)
+                hand_posenc = nerf_positional_encoding(hand_points, c.nerf_num_freqs)
+                obj_posenc = nerf_positional_encoding(obj_points, c.nerf_num_freqs)
+            elif c.sdf_infer_mode == "hier" and c.paired_sdf_infer:
+                (hand_points, hand_sdf, hand_posenc), (obj_points, obj_sdf, obj_posenc) = \
+                    paired_sdf_infer(self, pyramid, mano_root, obj_center, cam_intr,
+                                     batch["bbox_hand"], batch["bbox_obj"])
+            else:
+                hand_points, hand_sdf, hand_posenc = self.sdf_infer(
+                    pyramid, mano_root, cam_intr, batch["bbox_hand"], c.hand_sdf_scale,
+                    c.num_samp_hand, "hand")
+                obj_points, obj_sdf, obj_posenc = self.sdf_infer(
+                    pyramid, obj_center, cam_intr, batch["bbox_obj"], c.obj_sdf_scale,
+                    c.num_samp_obj, "obj")
         sigma_hand = sdf_attention_weight(hand_sdf.detach(), self.hand_sigmoid_beta)
         sigma_obj = sdf_attention_weight(obj_sdf.detach(), self.obj_sigmoid_beta)
 
-        if c.merged_field_queries:
-            (hand_fea, obj_fea, hand_cam, obj_cam, hand_o_sdf, hand_o_posenc,
-             obj_h_sdf, obj_h_posenc) = self.token_and_cross_queries(
-                pyramid, hand_points, obj_points, mano_root, obj_center, cam_intr, generator)
-        else:
-            hand_fea, hand_cam = self.point_transformer_features(
-                pyramid, hand_points, mano_root, cam_intr, c.hand_sdf_scale)
-            obj_fea, obj_cam = self.point_transformer_features(
-                pyramid, obj_points, obj_center, cam_intr, c.obj_sdf_scale)
-            # the cross queries through the other field's decoder, each at
-            # its own gather (the original's "# bug" frames, as merged)
-            hand_o_points = (hand_cam - obj_center[:, None, :]) * c.obj_sdf_scale
-            hand_o_sdf, _ = self.sdf_forward(pyramid, hand_o_points, obj_center, cam_intr,
-                                             c.obj_sdf_scale, "obj", generator)
-            hand_o_posenc = nerf_positional_encoding(hand_o_points, c.nerf_num_freqs)
-            obj_h_points = (obj_cam - mano_root[:, None, :]) * c.hand_sdf_scale
-            obj_h_sdf, _ = self.sdf_forward(pyramid, obj_h_points, mano_root, cam_intr,
-                                            c.hand_sdf_scale, "hand", generator)
-            obj_h_posenc = nerf_positional_encoding(obj_h_points, c.nerf_num_freqs)
-        hand_points_notrans = hand_cam - mano_root[:, None, :]
-        obj_points_notrans = obj_cam - obj_center[:, None, :]
-        hand_o_points_notrans = hand_cam - obj_center[:, None, :]
-        obj_h_points_notrans = obj_cam - mano_root[:, None, :]
-        sigma_hand_o = sdf_attention_weight(hand_o_sdf.detach(), self.obj_sigmoid_beta)
-        sigma_obj_h = sdf_attention_weight(obj_h_sdf.detach(), self.hand_sigmoid_beta)
+        with span("model.field_queries"):
+            if c.merged_field_queries:
+                (hand_fea, obj_fea, hand_cam, obj_cam, hand_o_sdf, hand_o_posenc,
+                 obj_h_sdf, obj_h_posenc) = self.token_and_cross_queries(
+                    pyramid, hand_points, obj_points, mano_root, obj_center, cam_intr,
+                    generator)
+            else:
+                hand_fea, hand_cam = self.point_transformer_features(
+                    pyramid, hand_points, mano_root, cam_intr, c.hand_sdf_scale)
+                obj_fea, obj_cam = self.point_transformer_features(
+                    pyramid, obj_points, obj_center, cam_intr, c.obj_sdf_scale)
+                # the cross queries through the other field's decoder, each at
+                # its own gather (the original's "# bug" frames, as merged)
+                hand_o_points = (hand_cam - obj_center[:, None, :]) * c.obj_sdf_scale
+                hand_o_sdf, _ = self.sdf_forward(pyramid, hand_o_points, obj_center, cam_intr,
+                                                 c.obj_sdf_scale, "obj", generator)
+                hand_o_posenc = nerf_positional_encoding(hand_o_points, c.nerf_num_freqs)
+                obj_h_points = (obj_cam - mano_root[:, None, :]) * c.hand_sdf_scale
+                obj_h_sdf, _ = self.sdf_forward(pyramid, obj_h_points, mano_root, cam_intr,
+                                                c.hand_sdf_scale, "hand", generator)
+                obj_h_posenc = nerf_positional_encoding(obj_h_points, c.nerf_num_freqs)
 
-        # Tokens: [xyz_rel ++ posenc ++ sigma * feat]; the other field's
-        # tokens carry no gradient
-        hand_src = torch.cat([
-            torch.cat([hand_points_notrans, hand_posenc, hand_fea * sigma_hand], -1),
-            torch.cat([obj_h_points_notrans, obj_h_posenc, obj_fea * sigma_obj_h],
-                      -1).detach(),
-        ], dim=1).to(dt)
-        obj_src = torch.cat([
-            torch.cat([obj_points_notrans, obj_posenc, obj_fea * sigma_obj], -1),
-            torch.cat([hand_o_points_notrans, hand_o_posenc, hand_fea * sigma_hand_o],
-                      -1).detach(),
-        ], dim=1).to(dt)
+        with span("model.tokens"):
+            hand_points_notrans = hand_cam - mano_root[:, None, :]
+            obj_points_notrans = obj_cam - obj_center[:, None, :]
+            hand_o_points_notrans = hand_cam - obj_center[:, None, :]
+            obj_h_points_notrans = obj_cam - mano_root[:, None, :]
+            sigma_hand_o = sdf_attention_weight(hand_o_sdf.detach(), self.obj_sigmoid_beta)
+            sigma_obj_h = sdf_attention_weight(obj_h_sdf.detach(), self.hand_sigmoid_beta)
 
-        hs, _memory, hand_enc_out, attn_wts = self.hand_transformer(
-            hand_src, torch.zeros_like(hand_src), self.mano_query_embed.weight,
-            self.tgt_mask, self.memory_mask, generator=generator)
-        _obj_memory, obj_enc_out = self.obj_transformer(
-            obj_src, torch.zeros_like(obj_src), generator=generator)
+            # Tokens: [xyz_rel ++ posenc ++ sigma * feat]; the other field's
+            # tokens carry no gradient
+            hand_src = torch.cat([
+                torch.cat([hand_points_notrans, hand_posenc, hand_fea * sigma_hand], -1),
+                torch.cat([obj_h_points_notrans, obj_h_posenc, obj_fea * sigma_obj_h],
+                          -1).detach(),
+            ], dim=1).to(dt)
+            obj_src = torch.cat([
+                torch.cat([obj_points_notrans, obj_posenc, obj_fea * sigma_obj], -1),
+                torch.cat([hand_o_points_notrans, hand_o_posenc, hand_fea * sigma_hand_o],
+                          -1).detach(),
+            ], dim=1).to(dt)
 
-        hand_enc_hand = hand_enc_out[:, :, : c.num_samp_hand]
-        out["hand_off"] = self.linear_handvote(hand_enc_hand).float()  # [L,B,P,60]
-        out["hand_cls"] = self.linear_handcls(hand_enc_hand).float()  # [L,B,P,20]
-        obj_enc_obj = obj_enc_out[:, :, : c.num_samp_obj]
-        out["obj_rot"] = self.linear_obj_rot(obj_enc_obj).float()
-        out["obj_trans"] = self.linear_obj_rel_trans(obj_enc_obj).float()
-        if c.use_inverse_kinematics:
-            out["mano_shape"] = self.linear_shape(hs[:, :, 0]).float()  # [L,B,10]
-        else:
-            out["mano_pose6d"] = self.linear_pose(hs[:, :, : c.mano_shape_indx]).float()
-            out["mano_shape"] = self.linear_shape(hs[:, :, c.mano_shape_indx]).float()
+        with span("model.transformers"):
+            hs, _memory, hand_enc_out, attn_wts = self.hand_transformer(
+                hand_src, torch.zeros_like(hand_src), self.mano_query_embed.weight,
+                self.tgt_mask, self.memory_mask, generator=generator)
+            _obj_memory, obj_enc_out = self.obj_transformer(
+                obj_src, torch.zeros_like(obj_src), generator=generator)
+
+        with span("model.heads"):
+            hand_enc_hand = hand_enc_out[:, :, : c.num_samp_hand]
+            out["hand_off"] = self.linear_handvote(hand_enc_hand).float()  # [L,B,P,60]
+            out["hand_cls"] = self.linear_handcls(hand_enc_hand).float()  # [L,B,P,20]
+            obj_enc_obj = obj_enc_out[:, :, : c.num_samp_obj]
+            out["obj_rot"] = self.linear_obj_rot(obj_enc_obj).float()
+            out["obj_trans"] = self.linear_obj_rel_trans(obj_enc_obj).float()
+            if c.use_inverse_kinematics:
+                out["mano_shape"] = self.linear_shape(hs[:, :, 0]).float()  # [L,B,10]
+            else:
+                out["mano_pose6d"] = self.linear_pose(hs[:, :, : c.mano_shape_indx]).float()
+                out["mano_shape"] = self.linear_shape(hs[:, :, c.mano_shape_indx]).float()
 
         out["hand_points_notrans"] = hand_points_notrans
         out["hand_points"] = hand_points

@@ -12,15 +12,24 @@ step N+1 while step N runs.  ``BatchingServer`` coalesces single-frame
 requests from any number of threads into device batches and keeps
 ``pipeline_depth`` steps in flight; ``run_poisson_load`` drives it with
 open-loop Poisson arrivals.
+
+Both record their stages as spans while a ``torch.profiler`` runs
+(``utils/profiling.py``): ``predictor.predict_async`` and its ``fill``,
+``step`` and ``pack``; the server's ``serve.submit`` on the caller's
+thread, ``serve.wait_first``, ``serve.collect``, ``serve.assemble`` and
+``serve.pipeline_full`` on the dispatcher, ``serve.wait_step`` and
+``serve.scatter`` on the completer, and per request id ``serve.queued``
+(submit to the dispatcher's take) and ``serve.request`` (submit to result).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future, InvalidStateError
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +41,7 @@ from hoisdf_torch.mano.model import load_mano_npz, make_synthetic_mano
 from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.ops import wire
 from hoisdf_torch.train import make_eval_step, resolve_device
-from hoisdf_torch.utils.profiling import StepStats
+from hoisdf_torch.utils.profiling import StepStats, record, span
 
 INPUT_KEYS = ("img", "cam_intr", "mano_root", "obj_center_cam", "bbox_hand", "bbox_obj")
 # Outputs a serving caller gets (all batch-leading), in packing order.
@@ -158,26 +167,29 @@ class Predictor:
         n = frames["img"].shape[0]
         if n > self.batch_size:
             raise ValueError(f"batch {n} > predictor batch {self.batch_size}")
-        with self._launch_lock:
+        with span("predictor.predict_async"), self._launch_lock:
             slot = self._slots[self._next_slot]
             self._next_slot = (self._next_slot + 1) % len(self._slots)
-            if slot.copied is not None:
-                slot.copied.synchronize()
-            self._fill(slot, frames, n)
             with torch.inference_mode():
-                batch = {k: t.to(self.device, non_blocking=True)
-                         for k, t in slot.tensors.items()}
-                if slot.copied is not None:
-                    slot.copied.record(torch.cuda.current_stream(self.device))
-                preds = self._eval_step(batch)
-                packed = torch.cat([preds[k].reshape(self.batch_size, -1).float()
-                                    for k, _ in self._pack_layout], dim=1)
-                out = self._take_out()
-                out.copy_(packed, non_blocking=True)
-                done = None
-                if self._cuda:
-                    done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(self.device))
+                with span("predictor.fill"):
+                    if slot.copied is not None:
+                        slot.copied.synchronize()
+                    self._fill(slot, frames, n)
+                    batch = {k: t.to(self.device, non_blocking=True)
+                             for k, t in slot.tensors.items()}
+                    if slot.copied is not None:
+                        slot.copied.record(torch.cuda.current_stream(self.device))
+                with span("predictor.step"):
+                    preds = self._eval_step(batch)
+                with span("predictor.pack"):
+                    packed = torch.cat([preds[k].reshape(self.batch_size, -1).float()
+                                        for k, _ in self._pack_layout], dim=1)
+                    out = self._take_out()
+                    out.copy_(packed, non_blocking=True)
+                    done = None
+                    if self._cuda:
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(self.device))
         return StepHandle(out, done), n
 
     def materialize(self, handle: StepHandle, n: int) -> Dict[str, np.ndarray]:
@@ -208,6 +220,16 @@ class Predictor:
 
     def latency_summary(self) -> Dict[str, float]:
         return self.stats.summary()
+
+
+class _Request(NamedTuple):
+    """A queued request: its frame, its future, its id and its submit time
+    (``perf_counter_ns``)."""
+
+    frame: Mapping[str, Any]
+    future: Future
+    rid: int
+    submitted_ns: int
 
 
 class BatchingServer:
@@ -242,10 +264,13 @@ class BatchingServer:
         # enqueued after the sentinel, so the dispatcher serves ALL accepted
         # requests before shutting down
         self._submit_lock = threading.Lock()
+        self._rids = itertools.count()
         self.batches_dispatched = 0
         self.frames_served = 0
-        self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True)
-        self._completer = threading.Thread(target=self._complete_loop, daemon=True)
+        self._dispatcher = threading.Thread(target=self._dispatch_loop, daemon=True,
+                                            name="serve.dispatcher")
+        self._completer = threading.Thread(target=self._complete_loop, daemon=True,
+                                           name="serve.completer")
         self._dispatcher.start()
         self._completer.start()
 
@@ -253,34 +278,40 @@ class BatchingServer:
         """frame: per-frame arrays WITHOUT a leading batch dim (``img
         [H,W,3]``, ``cam_intr [3,3]``, ...).  Returns a Future whose result
         is the per-frame output dict (leading dim stripped)."""
-        fut: "Future" = Future()
-        with self._submit_lock:
-            if self._closed:
-                raise RuntimeError("BatchingServer is closed")
-            self._q.put((frame, fut))
+        rid = next(self._rids)
+        with span("serve.submit", rid):
+            fut: "Future" = Future()
+            with self._submit_lock:
+                if self._closed:
+                    raise RuntimeError("BatchingServer is closed")
+                self._q.put(_Request(frame, fut, rid, time.perf_counter_ns()))
         return fut
 
     def _dispatch_loop(self) -> None:
         bs = self.predictor.batch_size
         stop = False
         while not stop:
-            item = self._q.get()
+            with span("serve.wait_first"):
+                item = self._q.get()
             if item is None:
                 break
-            pending: List[tuple] = [item]
-            deadline = time.monotonic() + self.max_wait_s
-            while len(pending) < bs:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    nxt = self._q.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    stop = True
-                    break
-                pending.append(nxt)
+            record("serve.queued", item.submitted_ns, rid=item.rid)
+            pending: List[_Request] = [item]
+            with span("serve.collect"):
+                deadline = time.monotonic() + self.max_wait_s
+                while len(pending) < bs:
+                    timeout = deadline - time.monotonic()
+                    if timeout <= 0:
+                        break
+                    try:
+                        nxt = self._q.get(timeout=timeout)
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        stop = True
+                        break
+                    record("serve.queued", nxt.submitted_ns, rid=nxt.rid)
+                    pending.append(nxt)
             self._dispatch_batch(pending)
         self._inflight.put(None)  # completer: drain and exit
 
@@ -292,26 +323,28 @@ class BatchingServer:
             except InvalidStateError:  # racing caller already cancelled it
                 pass
 
-    def _dispatch_batch(self, pending: List[tuple]) -> None:
+    def _dispatch_batch(self, pending: List[_Request]) -> None:
         # claim each future; callers may have .cancel()ed while queued, and
         # setting a result on a cancelled Future raises InvalidStateError,
         # which would kill the worker thread
-        pending = [(f, fut) for f, fut in pending if fut.set_running_or_notify_cancel()]
+        pending = [r for r in pending if r.future.set_running_or_notify_cancel()]
         if not pending:
             return
         try:
             # batch assembly inside the try: a malformed frame (ragged
             # shapes, missing key) must fail THIS batch's futures, not kill
             # the dispatcher thread and strand every later request
-            frames = {k: np.stack([np.asarray(f[k]) for f, _ in pending])
-                      for k in INPUT_KEYS if k in pending[0][0]}
+            with span("serve.assemble"):
+                frames = {k: np.stack([np.asarray(r.frame[k]) for r in pending])
+                          for k in INPUT_KEYS if k in pending[0].frame}
             handle, _n = self.predictor.predict_async(frames)
         except Exception as exc:  # bad inputs / launch error: this batch only
-            self._fail([fut for _, fut in pending], exc)
+            self._fail([r.future for r in pending], exc)
             return
         self.batches_dispatched += 1
         # blocks when pipeline_depth steps are already in flight
-        self._inflight.put((pending, handle))
+        with span("serve.pipeline_full"):
+            self._inflight.put((pending, handle))
 
     def _complete_loop(self) -> None:
         while True:
@@ -320,13 +353,16 @@ class BatchingServer:
                 return
             pending, handle = item
             try:
-                out = self.predictor.materialize(handle, len(pending))
+                with span("serve.wait_step"):  # the step's event, then the unpacking
+                    out = self.predictor.materialize(handle, len(pending))
             except Exception as exc:  # device-side failure of THIS step
-                self._fail([fut for _, fut in pending], exc)
+                self._fail([r.future for r in pending], exc)
                 continue
-            self.frames_served += len(pending)
-            for i, (_, fut) in enumerate(pending):
-                fut.set_result({k: v[i] for k, v in out.items()})
+            with span("serve.scatter"):
+                self.frames_served += len(pending)
+                for i, r in enumerate(pending):
+                    r.future.set_result({k: v[i] for k, v in out.items()})
+                    record("serve.request", r.submitted_ns, rid=r.rid)
 
     def close(self) -> None:
         """Serve every request accepted before close(), then stop both
@@ -347,7 +383,7 @@ class BatchingServer:
             except queue.Empty:
                 break
             if item is not None:
-                self._fail([item[1]], RuntimeError("BatchingServer closed"))
+                self._fail([item.future], RuntimeError("BatchingServer closed"))
 
     def __enter__(self) -> "BatchingServer":
         return self

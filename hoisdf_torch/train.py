@@ -4,7 +4,10 @@ AdamW with the stepped learning rate and its floor, the backbone-BN freeze,
 the losses with the train loop's weighting, the train step of both branches
 (jittered ground-truth-near points, or the field-guided sampler), the
 host-side branch gate, and the eval forward with joint voting and the
-final-layer MANO head.
+final-layer MANO head.  While a ``torch.profiler`` runs, the steps record
+their stages as spans (``utils/profiling.py``): ``train.step`` with
+``train.forward``, ``train.losses``, ``train.backward`` and
+``train.optimizer``; ``eval.step`` with ``eval.decode`` and ``eval.mano``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from hoisdf_torch.ops import wire
 from hoisdf_torch.ops.heatmap import render_gaussian_heatmap
 from hoisdf_torch.parallel.mesh import Mesh, mean_over_ranks, world_size
 from hoisdf_torch.parallel.zero import replicate, shard_state
+from hoisdf_torch.utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -250,24 +254,29 @@ def make_train_step(cfg: Config, mano_buffers: ManoBuffers, *, device="cuda"
     def train_step(state: TrainState, inputs: Mapping, targets: Mapping,
                    generator: Optional[torch.Generator], dist_range: float, *,
                    use_presampled: bool):
-        model = state.model.train()
-        batch = wire.decode_inputs(_to_device(inputs, dev))
-        tg = wire.decode_targets(_to_device(targets, dev))
-        lr = lr_for_step(cfg, state.step, state.steps_per_epoch)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        model.zero_grad(set_to_none=True)
-        out = model(batch, use_presampled=use_presampled, dist_range=float(dist_range),
-                    generator=generator)
-        losses, _ = compute_losses(cfg, out, tg, mano)
-        total = weighted_total(cfg, losses)
-        total.backward()
-        state.optimizer.step()
-        state.step += 1
-        losses = {k: v.detach() for k, v in losses.items()}
-        losses["total"] = total.detach()
-        if world_size() > 1:  # the global batch's losses, on every rank
-            losses = dict(zip(losses, mean_over_ranks(torch.stack(list(losses.values())))))
+        with span("train.step"):
+            model = state.model.train()
+            batch = wire.decode_inputs(_to_device(inputs, dev))
+            tg = wire.decode_targets(_to_device(targets, dev))
+            lr = lr_for_step(cfg, state.step, state.steps_per_epoch)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            model.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                out = model(batch, use_presampled=use_presampled,
+                            dist_range=float(dist_range), generator=generator)
+            with span("train.losses"):
+                losses, _ = compute_losses(cfg, out, tg, mano)
+                total = weighted_total(cfg, losses)
+            with span("train.backward"):
+                total.backward()
+            with span("train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            losses = {k: v.detach() for k, v in losses.items()}
+            losses["total"] = total.detach()
+            if world_size() > 1:  # the global batch's losses, on every rank
+                losses = dict(zip(losses, mean_over_ranks(torch.stack(list(losses.values())))))
         return state, losses
 
     return train_step
@@ -318,9 +327,10 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
     mano = mano_buffers.to(dev)
 
     def eval_step(inputs: Mapping) -> Dict[str, torch.Tensor]:
-        with torch.inference_mode():
-            batch = _to_device(inputs, dev, pin=True)
-            out = model(wire.decode_inputs(batch), supervise_sdf=supervise)
+        with span("eval.step"), torch.inference_mode():
+            with span("eval.decode"):
+                batch = wire.decode_inputs(_to_device(inputs, dev, pin=True))
+            out = model(batch, supervise_sdf=supervise)
             preds = {
                 "obj_rot": out["obj_rot"][-1],
                 "obj_trans": out["obj_trans"][-1],
@@ -333,8 +343,9 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
             if cfg.use_inverse_kinematics:
                 preds["mano_shape"] = out["mano_shape"][-1]
             else:  # MANO on the final decoder layer only, which eval reads
-                pred_mano = mano_head_pred(mano, out["mano_pose6d"][-1:],
-                                           out["mano_shape"][-1:])
+                with span("eval.mano"):
+                    pred_mano = mano_head_pred(mano, out["mano_pose6d"][-1:],
+                                               out["mano_shape"][-1:])
                 preds["mano_verts"] = pred_mano["verts3d"][-1]
                 preds["mano_joints"] = pred_mano["joints3d"][-1]
         return preds
