@@ -100,6 +100,15 @@ Phases, each printing one JSON line:
              MFU known, 8 launches of the SDF MLP and 11 of the gather a
              step, no plain version run by the port so far, and the FLOPs
              through the ops equal to a step's with the plain SDF MLP.
+   graph   - the eval forward's CUDA graph (models/forward_graph.py) in
+             the bench's step (dexycb, bf16, batch 22, u8 wire): host ms a
+             step call (median of 20) and pipelined ms a step, eager (the
+             model's forward swapped for its eager body) against replayed;
+             the three warm-up calls' seconds (the second replayed call
+             captures); graph_counts over the replayed calls
+             (1 eager warm-up, 1 capture, the rest replays); the kernels'
+             launches a step on both sides (equal); and the replayed
+             outputs bitwise equal to the eager ones.
    export  - the u8 serving Predictor's step exported with torch.export
              (tools/export.py) at batch 22, fixed and polymorphic, each
              loaded back and called on the card (the polymorphic one also at
@@ -107,7 +116,8 @@ Phases, each printing one JSON line:
              within 2e-2 of the output's scale on mano_joints and obj_trans
              (every output's error printed); per call the kernels' launches
              (equal to the eager step's); export and load seconds; the fixed
-             program's host and device ms beside eager's.
+             program's host and device ms beside eager's.  Runs last, after
+             the parallel lines, on the Predictor's eager forward.
    profile_trace - utils/profiling.py's capture_trace around one serving
              step: its Chrome trace must name both kernels.
    mano    - every option of mano/layer.py (PCA 6 and 45, flat_hand_mean
@@ -733,7 +743,9 @@ def recorded_selections(impose=None):
     order: its selected points.  With ``impose`` (another run's recorded
     points, in call order) each call returns those points instead, their sdf
     from the call's own ``sdf_fn``, and records the scores of both sets
-    under that ``sdf_fn`` (|sdf|, +inf outside the bbox)."""
+    under that ``sdf_fn`` (|sdf|, +inf outside the bbox).  Within it every
+    forward runs ``HOISDF.eager_forward``: a replayed CUDA graph calls no
+    sampler."""
     import torch
 
     from hoisdf_torch.models import experimental, hoisdf
@@ -767,9 +779,12 @@ def recorded_selections(impose=None):
         (experimental, "sdf_guided_sample_hierarchical"))]
     for m, n, f in saved:
         setattr(m, n, wrap(f))
+    forward = hoisdf.HOISDF.forward
+    hoisdf.HOISDF.forward = hoisdf.HOISDF.eager_forward
     try:
         yield record
     finally:
+        hoisdf.HOISDF.forward = forward
         for m, n, f in saved:
             setattr(m, n, f)
 
@@ -1062,7 +1077,8 @@ def sampler_eval_step(name: str, over: dict, device, batch_size: int,
     inputs = _eval_batches(cfg, 1, batch_size)[0][0]
     wire0 = {k: torch.from_numpy(v).to(device) for k, v in
              wire.encode_inputs({k: v for k, v in inputs.items() if k != "obj_cls"}).items()}
-    step(wire0)  # warmup
+    step(wire0)  # warm-up
+    step(wire0)  # the forward's CUDA graph is captured (models/forward_graph.py)
     sites, error, _ = sync_gate(lambda: step(wire0))
     torch.cuda.synchronize(device)
     prof = device_breakdown(lambda: step(wire0), 1)
@@ -1658,6 +1674,82 @@ def bench_phase(device, plain_calls: list, batch_size: int = 22) -> dict:
     return res
 
 
+def graph_phase(device, batch_size: int = 22, iters: int = 20) -> dict:
+    """The ``graph`` line: the bench's eval step with the model's forward
+    swapped for :meth:`HOISDF.eager_forward` (an instance attribute, as the
+    benchmark's reader installs one), then replayed from its CUDA graph."""
+    import statistics
+
+    import torch
+
+    from hoisdf_torch import bench
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.models.hoisdf import build_model
+    from hoisdf_torch.ops.kernels import (
+        graph_counts,
+        launch_counts,
+        reset_graph_counts,
+        reset_launch_counts,
+    )
+    from hoisdf_torch.train import make_eval_step
+
+    cfg = bench.build_config("dexycb")
+    model = build_model(cfg, 0)
+    step = make_eval_step(cfg, model, ManoBuffers.from_model(make_synthetic_mano(0)),
+                          device=device)
+    inputs = bench.eval_inputs(cfg, batch_size, device)
+
+    def run():
+        res = {}
+        t0 = time.perf_counter()
+        outs = [step(inputs) for _ in range(3)]  # warm-up (and capture)
+        torch.cuda.synchronize()
+        res["warmup_s"] = time.perf_counter() - t0
+        reset_launch_counts()
+        host = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(inputs)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        res["launches"] = {k: v / iters for k, v in launch_counts.items()}
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step(inputs)
+        torch.cuda.synchronize()
+        res["host_ms"] = statistics.median(host)
+        res["pipelined_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        res["fps"] = batch_size * 1e3 / res["pipelined_ms"]
+        return res, outs[-1]
+
+    model.forward = model.eager_forward
+    try:
+        eager, want = run()
+    finally:
+        del model.forward
+    reset_graph_counts()
+    replayed, got = run()
+    counts = dict(graph_counts)
+    bitwise = got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+    res = {"phase": "graph", "batch": batch_size, "host_ms": {
+        "eager": eager["host_ms"], "replayed": replayed["host_ms"]},
+           "pipelined_ms": {"eager": eager["pipelined_ms"], "replayed": replayed["pipelined_ms"]},
+           "fps": {"eager": eager["fps"], "replayed": replayed["fps"]},
+           "warmup_s": {"eager": eager["warmup_s"], "replayed": replayed["warmup_s"]},
+           "counts": counts, "launches": {"eager": eager["launches"],
+                                          "replayed": replayed["launches"]},
+           "bitwise": bitwise}
+    res["ok"] = (bitwise and eager["launches"] == replayed["launches"]
+                 and counts == {"captures": 1, "replays": 2 * iters + 1, "eager": 1})
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError("graph phase failed: the replayed step differs from the eager "
+                             "one, its launches a step differ, or it did not capture once")
+    return res
+
+
 def profile_step(predictor, frames_seed: int = 7):
     """Device time by kernel name over two serving steps."""
     from hoisdf_torch.data.synthetic import synthetic_batch
@@ -1703,7 +1795,17 @@ def export_phase(pred, frames) -> dict:
     output's scale on mano_joints and obj_trans (every output's error
     printed); per exported call the kernels' launches, which must equal the
     eager step's; export and load seconds; the fixed program's host and
-    device ms beside eager's."""
+    device ms beside eager's.  The Predictor's forward runs its eager body
+    here (``HOISDF.eager_forward``), not its CUDA graph."""
+    model = pred.model
+    model.forward = model.eager_forward
+    try:
+        return _export_phase(pred, frames)
+    finally:
+        del model.forward
+
+
+def _export_phase(pred, frames) -> dict:
     import importlib
     import json as _json
     import os
@@ -3180,12 +3282,13 @@ def _phases(device, smi, native, t_start, mark, plain_calls) -> int:
     profile_step(predictors["float32"])
     mark("serving")
     benched = bench_phase(device, plain_calls, serve_batch)
-    mark("bench")
-    exported = export_phase(predictors["uint8"], frames["uint8"])
+    graph_phase(device, serve_batch)
+    mark("bench and graph")
     profile_trace_phase(predictors["uint8"], frames["uint8"])
+    export_pred = predictors["uint8"]
     del predictors
     mano_phase(device)
-    mark("export, profile_trace and mano")
+    mark("profile_trace and mano")
 
     train_res, bwd_step = train(train_cfg, train_cfg.train_batch_size, device)
     compare_train_step(train_cfg, 2, device)
@@ -3220,6 +3323,11 @@ def _phases(device, smi, native, t_start, mark, plain_calls) -> int:
 
     par = parallel_phase(device, batch_size=train_cfg.train_batch_size)
     mark("parallel")
+    # last: after a torch.export in the process, torch.profiler's tracing of
+    # a CUDA graph replay has segfaulted in CUPTI (torch 2.11.0+cu128)
+    exported = export_phase(export_pred, frames["uint8"])
+    del export_pred
+    mark("export")
 
     launches, train_launches = serve_res["launches"], train_res["launches"]
     kernels = [

@@ -32,6 +32,11 @@ While a ``torch.profiler`` runs, ``forward`` records its stages as spans
 ``model.backbone``, ``model.decoder``, ``model.sdf_supervise``,
 ``model.sampler`` (field-guided or presampled), ``model.field_queries``,
 ``model.tokens``, ``model.transformers`` and ``model.heads``.
+
+The inference forward on a card replays one CUDA graph of those stages per
+batch signature (``models/forward_graph.py``): its replay records
+``model.graph`` instead of the stages' spans.  The train steps, the
+presampled branch, ``torch.export`` and FSDP take the same code eagerly.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch
 from torch import nn
 
 from hoisdf_torch.config import Config
+from hoisdf_torch.models import forward_graph
 from hoisdf_torch.models.decoder import Decoder, DecoderBig
 from hoisdf_torch.models.experimental import paired_sdf_infer
 from hoisdf_torch.models.layers import Linear
@@ -61,6 +67,7 @@ from hoisdf_torch.ops.grid_sample import (
     pixels_to_grid,
     project_points,
 )
+from hoisdf_torch.ops.kernels import graph_counts
 from hoisdf_torch.ops.kernels.sdf_mlp import fold_weight_norm, prepare_weights, sdf_mlp
 from hoisdf_torch.ops.nerf import nerf_positional_encoding
 from hoisdf_torch.ops.point_sampling import (
@@ -277,7 +284,31 @@ class HOISDF(nn.Module):
         ``supervise_sdf`` the ``hand_sdf_points`` / ``obj_sdf_points`` to
         query, and with ``use_presampled`` the ``hand_pre_points`` /
         ``obj_pre_points`` to jitter.  ``generator`` (on the batch's device)
-        draws the jitter and the dropout masks."""
+        draws the jitter and the dropout masks.
+
+        On a card, in eval mode, without gradients, on field-guided points,
+        untraced and unsharded (``forward_graph.on_card``, ``untraced`` and
+        ``graphs_of``), the forward replays a CUDA graph of
+        :meth:`eager_forward` per batch signature and returns clones of its
+        outputs; anything else runs :meth:`eager_forward`."""
+        graphs = None
+        if not (self.training or use_presampled) and forward_graph.on_card(batch) \
+                and forward_graph.untraced():
+            graphs = forward_graph.graphs_of(self)
+        if graphs is None:
+            graph_counts["eager"] += 1
+            return self.eager_forward(batch, supervise_sdf=supervise_sdf,
+                                      use_presampled=use_presampled, dist_range=dist_range,
+                                      generator=generator)
+        key = (supervise_sdf, self.compute_dtype, id(self.cfg),
+               torch.is_inference_mode_enabled(),
+               *((k, v.shape, v.stride(), v.dtype, v.device) for k, v in batch.items()))
+        return graphs.run(key, batch, lambda b: self.eager_forward(b, supervise_sdf=supervise_sdf))
+
+    def eager_forward(self, batch: Dict[str, torch.Tensor], *, supervise_sdf: bool = True,
+                      use_presampled: bool = False, dist_range: float = 0.0,
+                      generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """:meth:`forward`'s body, launched op by op."""
         c = self.cfg
         dt = self.compute_dtype
         out: Dict[str, Any] = {}

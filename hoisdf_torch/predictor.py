@@ -131,7 +131,11 @@ class Predictor:
         return dict(self._pack_layout)
 
     def warmup(self) -> None:
-        self.materialize(*self.predict_async(self._template))
+        """A step on the template batch; on a card two, the first warming
+        the forward up and the second capturing its CUDA graph
+        (``models/forward_graph.py``), so that no later call captures."""
+        for _ in range(2 if self._cuda else 1):
+            self.materialize(*self.predict_async(self._template))
 
     def _fill(self, slot: _InputSlot, frames: Mapping[str, np.ndarray], n: int) -> None:
         """Encode ``frames`` into ``slot``, padding rows n.. with the last frame;

@@ -147,3 +147,115 @@ def test_evaluate_main_writes_results_in_a_sampler_mode(items, tmp_path):
         assert written == g.read()
     values = [float(line.split(":")[1]) for line in written.splitlines() if " :  " in line]
     assert len(values) == 5 and np.isfinite(values).all()
+
+
+# ---- the CUDA graph's gate (models/forward_graph.py) ---------------------------
+
+
+def _tiny_model(seed=0):
+    from hoisdf_torch.config import SYNTHETIC_TINY_OVERRIDES, get_config
+    from hoisdf_torch.models.hoisdf import build_model
+
+    return build_model(get_config("dexycb", **SYNTHETIC_TINY_OVERRIDES), seed)
+
+
+@pytest.fixture(scope="module")
+def tiny_model():
+    return _tiny_model()
+
+
+@pytest.fixture
+def gated(tiny_model, monkeypatch):
+    """The tiny model with a stub body, on a batch the gate takes for one on
+    the card: each case turns one of the other conditions off."""
+    from hoisdf_torch.models import forward_graph
+    from hoisdf_torch.ops.kernels import reset_graph_counts
+
+    model = tiny_model.eval()
+    calls = []
+    monkeypatch.setattr(model, "eager_forward", lambda batch, **kw: calls.append(kw) or {})
+    monkeypatch.setattr(forward_graph, "on_card", lambda batch: True)
+    reset_graph_counts()
+    return model, calls
+
+
+@pytest.mark.parametrize("case", ["train", "grad", "presampled", "export"])
+def test_the_gate_keeps_the_eager_path(gated, monkeypatch, case):
+    import contextlib
+
+    from hoisdf_torch.models import forward_graph
+    from hoisdf_torch.ops.kernels import graph_counts
+
+    model, calls = gated
+    mode, kwargs = torch.inference_mode(), {}
+    if case == "train":
+        model.train()
+    elif case == "grad":
+        mode = contextlib.nullcontext()
+    elif case == "presampled":
+        kwargs = dict(use_presampled=True, dist_range=0.01)
+    else:
+        monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    with mode:
+        model({"img": torch.zeros(1, 8, 8, 3)}, **kwargs)
+    assert len(calls) == 1 and calls[0].get("use_presampled", False) == (case == "presampled")
+    assert graph_counts == {"captures": 0, "replays": 0, "eager": 1}
+    assert model not in forward_graph._STATES
+
+
+def test_untraced_sees_autograd_and_the_modes_over_the_ops():
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from hoisdf_torch.models.forward_graph import on_card, untraced
+
+    assert not untraced()  # autograd on
+    with torch.inference_mode():
+        assert untraced()
+        with FlopCounterMode(display=False):
+            assert not untraced()
+        with torch.device("cpu"):
+            assert not untraced()
+    assert not on_card({"img": torch.zeros(1)})
+    assert not on_card({"img": torch.zeros(1), "n": 3})
+
+
+def test_forward_graphs_follow_the_weights_addresses():
+    """In-place loads keep a module's graphs; a parameter or buffer replaced,
+    given other storage or moved drops them."""
+    from hoisdf_torch.models.forward_graph import ForwardGraphs
+
+    model = _tiny_model()
+    other = {k: v + 1 for k, v in model.state_dict().items()}
+    graphs = ForwardGraphs(model)
+    assert not graphs.sharded
+    assert len(graphs.slots) == len([*model.parameters(), *model.buffers()])
+    model.load_state_dict(other)
+    assert graphs.current()
+    bias = model.linear_handcls.layers[-1].bias
+    bias.data = bias.data.clone()
+    assert not graphs.current()
+    graphs = ForwardGraphs(model)
+    model.linear_handcls.layers[-1].bias = torch.nn.Parameter(bias.detach().clone())
+    assert not graphs.current()
+    graphs = ForwardGraphs(model)
+    model.load_state_dict(other, assign=True)
+    assert not graphs.current()
+    graphs = ForwardGraphs(model)
+    model.to(torch.float64)
+    assert not graphs.current()
+
+
+def test_device_cache_holds_what_it_returns_while_asked():
+    from hoisdf_torch.ops.device_cache import device_cache, held
+
+    @device_cache(maxsize=1)
+    def const(n):
+        return torch.full((2,), float(n))
+
+    kept = []
+    with held(kept):
+        a = const(1)
+        assert const(1) is a
+        const(2)  # evicts const(1) from the cache
+    const(3)
+    assert len(kept) == 3 and kept[0] is a and kept[1] is a
