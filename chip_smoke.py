@@ -109,6 +109,13 @@ Phases, each printing one JSON line:
              (1 eager warm-up, 1 capture, the rest replays); the kernels'
              launches a step on both sides (equal); and the replayed
              outputs bitwise equal to the eager ones.
+   ik      - the IK head (ho3d_render): the solve's kernel against its
+             plain twin on the CPU (flags bit for bit, the pose within 1e-4
+             rad on hands; random joints printed), its time, the twin's on
+             the card and its bound; the kernels ops/ik.py launches with the
+             op and with the plain solve; a ho3d_render Predictor's warmed
+             predict_async free of synchronizing calls; and a graph line for
+             ho3d_render.
    export  - the u8 serving Predictor's step exported with torch.export
              (tools/export.py) at batch 22, fixed and polymorphic, each
              loaded back and called on the card (the polymorphic one also at
@@ -1674,10 +1681,11 @@ def bench_phase(device, plain_calls: list, batch_size: int = 22) -> dict:
     return res
 
 
-def graph_phase(device, batch_size: int = 22, iters: int = 20) -> dict:
-    """The ``graph`` line: the bench's eval step with the model's forward
-    swapped for :meth:`HOISDF.eager_forward` (an instance attribute, as the
-    benchmark's reader installs one), then replayed from its CUDA graph."""
+def graph_phase(device, batch_size: int = 22, iters: int = 20, setting: str = "dexycb") -> dict:
+    """The ``graph`` line: the bench's eval step of ``setting`` with the
+    model's forward swapped for :meth:`HOISDF.eager_forward` (an instance
+    attribute, as the benchmark's reader installs one), then replayed from
+    its CUDA graph."""
     import statistics
 
     import torch
@@ -1694,7 +1702,7 @@ def graph_phase(device, batch_size: int = 22, iters: int = 20) -> dict:
     )
     from hoisdf_torch.train import make_eval_step
 
-    cfg = bench.build_config("dexycb")
+    cfg = bench.build_config(setting)
     model = build_model(cfg, 0)
     step = make_eval_step(cfg, model, ManoBuffers.from_model(make_synthetic_mano(0)),
                           device=device)
@@ -1733,7 +1741,7 @@ def graph_phase(device, batch_size: int = 22, iters: int = 20) -> dict:
     replayed, got = run()
     counts = dict(graph_counts)
     bitwise = got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
-    res = {"phase": "graph", "batch": batch_size, "host_ms": {
+    res = {"phase": "graph", "setting": setting, "batch": batch_size, "host_ms": {
         "eager": eager["host_ms"], "replayed": replayed["host_ms"]},
            "pipelined_ms": {"eager": eager["pipelined_ms"], "replayed": replayed["pipelined_ms"]},
            "fps": {"eager": eager["fps"], "replayed": replayed["fps"]},
@@ -1747,6 +1755,142 @@ def graph_phase(device, batch_size: int = 22, iters: int = 20) -> dict:
     if not res["ok"]:
         raise AssertionError("graph phase failed: the replayed step differs from the eager "
                              "one, its launches a step differ, or it did not capture once")
+    return res
+
+
+def _ik_hands(batch: int, seed: int, device):
+    """FK joints of ``batch`` random hands (metres, 2 mm of noise), every
+    other one mirrored (a reflection for Kabsch), as the solve's inputs:
+    (root-relative target, template joints), f32 on ``device``."""
+    import numpy as np
+    import torch
+
+    from hoisdf_torch.mano.layer import ManoBuffers, mano_forward
+    from hoisdf_torch.mano.model import make_synthetic_mano
+
+    mano = ManoBuffers.from_model(make_synthetic_mano(0))
+    rng = np.random.RandomState(seed)
+    pose = torch.from_numpy((rng.randn(batch, 48) * 0.3).astype(np.float32))
+    shape = torch.from_numpy((rng.randn(batch, 10) * 0.3).astype(np.float32))
+    _, joints = mano_forward(mano, pose, shape)
+    joints = joints / 1000.0 + torch.from_numpy((rng.randn(batch, 21, 3) * 0.002)
+                                                .astype(np.float32))
+    joints[::2, :, 0] *= -1
+    _, template = mano_forward(mano, torch.zeros(batch, 48), shape)
+    return ((joints - joints[:, :1]).contiguous().to(device),
+            (template / 1000.0).contiguous().to(device))
+
+
+def _kernel_launches(fn) -> int:
+    """Device kernels one call of ``fn`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def ik_phase(device, batch_size: int = 22) -> dict:
+    """The IK head on the card (``ik`` lines).  ``check: kernel``: the solve's
+    kernel (``hoisdf_torch::ik_solve``) against its plain twin on the CPU, on
+    hands at batch 22 and 4,096 and on random joints at batch 22 (the voted
+    joints of an untrained model look like these): the flag bit for bit, the
+    pose within 1e-4 rad on hands (printed on random joints); its time, the
+    plain twin's on the card (host-bound: its SVD waits for the card) and
+    its bound (benchmark/counts/ik.py).  ``check: launches``: the kernels
+    that ``ops/ik.py::ik_solver_mano`` launches at batch 22 with the op and
+    with the plain twin in its place.  ``check: serve``: a warmed
+    ho3d_render Predictor (bf16, u8, batch 22) makes no synchronizing call
+    in ``predict_async`` (``set_sync_debug_mode`` "error") and serves finite
+    meshes.  Then a ``graph`` line for ho3d_render (its forward replays)."""
+    import numpy as np
+    import torch
+
+    from benchmark.counts import peaks
+    from benchmark.counts.ik import ik_solve_bound_s
+    from hoisdf_torch.config import get_config
+    from hoisdf_torch.data.synthetic import synthetic_batch
+    from hoisdf_torch.mano.layer import ManoBuffers
+    from hoisdf_torch.mano.model import make_synthetic_mano
+    from hoisdf_torch.ops import ik as ik_mod
+    from hoisdf_torch.ops import wire
+    from hoisdf_torch.ops.kernels.ik import ik_solve, ik_solve_plain
+    from hoisdf_torch.predictor import INPUT_KEYS, Predictor
+
+    t0 = time.perf_counter()
+    res = {"phase": "ik", "check": "kernel", "cases": {}}
+    ok = True
+    rng = np.random.RandomState(5)
+    cases = {"hands_22": _ik_hands(22, 1, device), "hands_4096": _ik_hands(4096, 2, device),
+             "random_22": (torch.from_numpy((rng.randn(22, 21, 3) * 0.05).astype(np.float32)),
+                           _ik_hands(22, 3, device)[1].cpu())}
+    for name, (target, template) in cases.items():
+        target, template = target.to(device), template.to(device)
+        pose, valid = ik_solve(target, template)
+        want_pose, want_valid = ik_solve_plain(target.cpu(), template.cpu())
+        err = float((pose.cpu() - want_pose).abs().max())
+        flags = bool(torch.equal(valid.cpu(), want_valid))
+        b = target.shape[0]
+        plain_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ik_solve_plain(target, template)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t1) * 1e3)
+        entry = {"batch": b, "flags_bitwise": flags, "valid_frames": int(valid.sum()),
+                 "pose_max_abs_err": err, "ms": time_ms(lambda: ik_solve(target, template),
+                                                          iters=50),
+                 "plain_ms": float(np.median(plain_ms)),
+                 "bound_ms": ik_solve_bound_s(b, peaks(torch.cuda.get_device_name(device))) * 1e3}
+        entry["ok"] = flags and (err <= 1e-4 or name.startswith("random"))
+        ok = ok and entry["ok"]
+        res["cases"][name] = entry
+    res["ok"] = ok
+    emit(res)
+
+    mano = ManoBuffers.from_model(make_synthetic_mano(0)).to(device)
+    joints = torch.cat([torch.zeros(batch_size, 1, 3, device=device),
+                        cases["random_22"][0].to(device)[:, 1:] + 0.01], dim=1)
+    shape = torch.zeros(batch_size, 10, device=device)
+    with_op = _kernel_launches(lambda: ik_mod.ik_solver_mano(mano, joints, shape))
+    saved = ik_mod.ik_solve
+    # called from this script, which plain_guard does not note
+    ik_mod.ik_solve = lambda target, template: ik_solve_plain(target, template)
+    try:
+        with_plain = _kernel_launches(lambda: ik_mod.ik_solver_mano(mano, joints, shape))
+    finally:
+        ik_mod.ik_solve = saved
+    line = {"phase": "ik", "check": "launches", "batch": batch_size,
+            "ik_solver_mano_with_op": with_op, "ik_solver_mano_with_plain_solve": with_plain,
+            "ok": with_op < with_plain}
+    emit(line)
+    ok = ok and line["ok"]
+
+    cfg = get_config("ho3d_render", compute_dtype="bfloat16")
+    pred = Predictor(cfg, batch_size, "uint8", device=device,
+                     state_dict=build_biased_model(cfg).state_dict())
+    pred.warmup()
+    fr = {k: v for k, v in synthetic_batch(cfg, batch_size, seed=101).items() if k in INPUT_KEYS}
+    fr["img"] = wire.quantize_image_u8(fr["img"])
+    sites, error = sync_check(pred, fr)
+    out = pred.predict(fr)
+    good = all(out[k].shape == (batch_size, *s) and np.isfinite(out[k]).all()
+               for k, s in _serve_shapes(cfg).items())
+    line = {"phase": "ik", "check": "serve", "setting": "ho3d_render", "batch": batch_size,
+            "sync_free": error is None and not sites, "sync_sites": sites, "sync_error": error,
+            "outputs_ok": good, "served": list(out), "seconds": time.perf_counter() - t0}
+    line["ok"] = line["sync_free"] and good
+    emit(line)
+    ok = ok and line["ok"]
+    del pred
+    graph_phase(device, batch_size, setting="ho3d_render")
+    if not ok:
+        raise AssertionError("ik phase failed: the kernel differs from its twin, a "
+                             "synchronizing call in predict_async, or no launches saved")
     return res
 
 
@@ -3168,6 +3312,7 @@ def parallel_phase(device, batch_size: int = 22) -> dict:
 
 
 PLAIN_VERSIONS = ("gather_lerp_plain", "gather_nearest_plain", "gather_lerp_bwd_plain",
+                  "ik_solve_plain",
                   "sdf_mlp_plain")
 
 
@@ -3181,7 +3326,7 @@ def plain_guard(seen: list):
     the spawned ranks or the mains' loader workers)."""
     import torch
 
-    from hoisdf_torch.ops.kernels import gather_lerp, sdf_mlp
+    from hoisdf_torch.ops.kernels import gather_lerp, ik, sdf_mlp
 
     def on_card(args):
         for a in args:
@@ -3191,7 +3336,7 @@ def plain_guard(seen: list):
         return False
 
     saved = []
-    for mod in (gather_lerp, sdf_mlp):
+    for mod in (gather_lerp, ik, sdf_mlp):
         for name in PLAIN_VERSIONS:
             if not hasattr(mod, name):
                 continue
@@ -3283,7 +3428,8 @@ def _phases(device, smi, native, t_start, mark, plain_calls) -> int:
     mark("serving")
     benched = bench_phase(device, plain_calls, serve_batch)
     graph_phase(device, serve_batch)
-    mark("bench and graph")
+    ik_phase(device, serve_batch)
+    mark("bench, graph and ik")
     profile_trace_phase(predictors["uint8"], frames["uint8"])
     export_pred = predictors["uint8"]
     del predictors

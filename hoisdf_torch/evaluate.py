@@ -5,8 +5,10 @@ The original's ``main/test.py:77-269`` metric set.  DexYCB: ADD-S, OCE and
 MCE, and the MANO MJE and PA-MJE (dexycb_full adds the mesh EPE / AUC and the
 F-scores at 5 and 15 mm).  HO3D: ADD-S and MME, with 019_pitcher_base left
 out of both and of the sample count, and the codalab lists of joints (MANO
-order -> the leaderboard's) and vertices in the OpenGL frame.  ho3d_render
-recovers the hand by IK from the voted joints and the predicted shape.
+order -> the leaderboard's) and vertices in the OpenGL frame.  ho3d_render's
+eval step recovers the hand by IK from the voted joints and the predicted
+shape (``train.solve_hand_ik``); the evaluator reads its meshes as the other
+presets'.
 
 Metrics run on the evaluator's device, one host transfer per batch; the
 accumulation is host numpy.  ``main`` evaluates on one card (or the CPU with
@@ -54,7 +56,6 @@ from hoisdf_torch.metrics import EvalUtil, eval_batched_obj_direct, eval_hand_jo
 from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.models.mano_head import mano_head_gt
 from hoisdf_torch.ops import wire
-from hoisdf_torch.ops.ik import ik_solver_mano
 from hoisdf_torch.parallel.mesh import Mesh, init_distributed, make_mesh, shard_batch
 from hoisdf_torch.train import disable_tf32, make_eval_step, resolve_device
 from hoisdf_torch.utils import checkpoint as ckpt_util
@@ -130,12 +131,6 @@ class Evaluator:
             return np.asarray(meta["obj_cls"]).reshape(b) != pitcher
         return np.ones(b, bool)
 
-    def _ik(self, preds: Mapping) -> Dict[str, torch.Tensor]:
-        joints = self._t(preds["hand_joints"])
-        joints = torch.cat([torch.zeros_like(joints[:, :1]), joints], dim=1)
-        shape = preds.get("mano_shape")
-        return ik_solver_mano(self.mano, joints, None if shape is None else self._t(shape))
-
     def feed(self, preds: Mapping, targets: Mapping, meta: Mapping, templates) -> None:
         """One batch: ``preds`` of the eval step (tensors on any device, or
         numpy), ``targets`` and ``meta`` (the inputs) as numpy or tensors,
@@ -149,18 +144,15 @@ class Evaluator:
                 self._t(targets["obj_rot"]), self._t(targets["rel_obj_trans"]),
                 self._t(templates), ho3d=ho3d)
             if ho3d:
-                if cfg.use_inverse_kinematics:
-                    ik = self._ik(preds)
-                    dev["joints"], dev["mesh"] = ik["joints"], ik["verts"]
-                else:
-                    dev["joints"] = self._t(preds["mano_joints"])
-                    dev["mesh"] = self._t(preds["mano_verts"])
+                dev["joints"] = self._t(preds["mano_joints"])
+                dev["mesh"] = self._t(preds["mano_verts"])
             else:
                 need_gt = cfg.eval_mesh or not cfg.use_inverse_kinematics
                 gt = mano_head_gt(self.mano, self._t(targets["mano_param"])) if need_gt else None
-                if cfg.use_inverse_kinematics:
+                if cfg.use_inverse_kinematics:  # the IK hand against the target joints
                     dev["mje"], dev["pamje"] = eval_hand_joint(
-                        self._ik(preds)["joints"], self._t(targets["joint_cam_no_trans"]) / 1000)
+                        self._t(preds["mano_joints"]),
+                        self._t(targets["joint_cam_no_trans"]) / 1000)
                 else:
                     dev["mje"], dev["pamje"] = eval_hand_joint(
                         self._t(preds["mano_joints"]), gt["joints3d"])

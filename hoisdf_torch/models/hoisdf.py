@@ -12,7 +12,8 @@ features and cross-field queries share one merged pyramid gather
 (``merged_field_queries=True``) or take four, the cross queries through
 ``sdf_forward``.  The ho3d preset's pyramid comes from ``DecoderBig`` (3,968
 channels at ResNet-50), and ho3d_render's transformer decodes one shape query
-(the pose comes from IK on the voted joints, ``ops/ik.py``).  The module's
+(the eval step solves the pose by IK from the voted joints,
+``train.solve_hand_ik`` over ``ops/ik.py``).  The module's
 mode is the train flag: ``model.train()`` puts
 BatchNorm on batch statistics and turns dropout on, whose masks (and the
 jitter) come from the ``generator`` passed to ``forward``.  Module and

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 Each kernel is a ``torch.library`` custom op in the ``hoisdf_torch``
-namespace (``sdf_mlp``, ``gather_lerp``, ``gather_lerp_bwd``), so
+namespace (``sdf_mlp``, ``gather_lerp``, ``gather_lerp_bwd``, ``ik_solve``), so
 ``torch.export`` and graph capture see it as one node: its CPU
 implementation is the plain PyTorch version, its CUDA implementation
 launches the kernel or raises, and a fake implementation gives the output
@@ -16,7 +16,7 @@ adds the launches its capture counted.
 from typing import Dict
 
 launch_counts: Dict[str, int] = {"sdf_mlp": 0, "gather_lerp": 0, "gather_lerp_nearest": 0,
-                                 "gather_lerp_bwd": 0}
+                                 "gather_lerp_bwd": 0, "ik_solve": 0}
 graph_counts: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
 
 
@@ -30,4 +30,4 @@ def reset_graph_counts() -> None:
         graph_counts[k] = 0
 
 
-from hoisdf_torch.ops.kernels import gather_lerp, sdf_mlp  # noqa: E402,F401  (register the ops)
+from hoisdf_torch.ops.kernels import gather_lerp, ik, sdf_mlp  # noqa: E402,F401  (register the ops)

@@ -23,7 +23,7 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("sdf_mlp.cu", "gather_lerp.cu")
+SOURCES = ("sdf_mlp.cu", "gather_lerp.cu", "ik.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources; part of the stamp
 LIB = os.path.join(BUILD_DIR, "libhoisdf_kernels.so")
 # The shared memory that a shared-route block of the gather's backward gives
@@ -112,5 +112,7 @@ def library() -> ctypes.CDLL:
             lib.gather_lerp_launch.restype = i
             lib.gather_lerp_bwd_launch.argtypes = [vp, vp, i, i, i, vp, i, vp, vp, vp, i, vp]
             lib.gather_lerp_bwd_launch.restype = i
+            lib.ik_solve_launch.argtypes = [vp, vp, i, vp, vp, vp]
+            lib.ik_solve_launch.restype = i
             _lib = lib
         return _lib

@@ -44,11 +44,10 @@ from hoisdf_torch.train import make_eval_step, resolve_device
 from hoisdf_torch.utils.profiling import StepStats, record, span
 
 INPUT_KEYS = ("img", "cam_intr", "mano_root", "obj_center_cam", "bbox_hand", "bbox_obj")
-# Outputs a serving caller gets (all batch-leading), in packing order.
+# Outputs a serving caller gets (all batch-leading), in packing order, for
+# every preset: under the IK head (ho3d_render) the step solves the meshes on
+# the card from the voted joints (ops/ik.py).
 SERVE_KEYS = ("mano_joints", "mano_verts", "hand_joints", "obj_rot", "obj_trans")
-# Under the IK head (ho3d_render) the step gives the shape, not the meshes;
-# the caller solves the pose from the voted joints (ops/ik.py).
-IK_SERVE_KEYS = ("mano_shape", "hand_joints", "obj_rot", "obj_trans")
 # Host input slots, each reused once its previous batch's host-to-device copy
 # has run: a server with up to INPUT_SLOTS - 1 steps in flight never waits
 # for one.
@@ -83,9 +82,9 @@ class Predictor:
     """Inputs per frame: img [H,W,3] in [0,1] (or u8), cam_intr [3,3],
     mano_root [3], obj_center_cam [3], bbox_hand / bbox_obj [4].  Outputs:
     MANO joints/verts (root-relative, metres), voted hand joints, object
-    rotation (axis-angle) and relative translation per object point; under
-    the IK head (ho3d_render) the MANO shape [10] instead of the meshes.
-    Every preset serves."""
+    rotation (axis-angle) and relative translation per object point.  Every
+    preset serves these; under the IK head (ho3d_render) the meshes are
+    solved by inverse kinematics inside the step."""
 
     def __init__(self, cfg: Optional[Config] = None, batch_size: int = 8,
                  transfer_dtype: str = "float32", *, device="cuda",
@@ -112,10 +111,10 @@ class Predictor:
         if transfer_dtype == "uint8":
             self._template["img"] = wire.quantize_image_u8(self._template["img"])
         k_obj = self.cfg.num_samp_obj
-        shapes = {"mano_joints": (21, 3), "mano_verts": (778, 3), "mano_shape": (10,),
-                  "hand_joints": (20, 3), "obj_rot": (k_obj, 3), "obj_trans": (k_obj, 3)}
-        keys = IK_SERVE_KEYS if self.cfg.use_inverse_kinematics else SERVE_KEYS
-        self._pack_layout: List[Tuple[str, Tuple[int, ...]]] = [(k, shapes[k]) for k in keys]
+        shapes = {"mano_joints": (21, 3), "mano_verts": (778, 3), "hand_joints": (20, 3),
+                  "obj_rot": (k_obj, 3), "obj_trans": (k_obj, 3)}
+        self._pack_layout: List[Tuple[str, Tuple[int, ...]]] = [(k, shapes[k])
+                                                                 for k in SERVE_KEYS]
         self._width = sum(int(np.prod(s)) for _, s in self._pack_layout)
         self._cuda = self.device.type == "cuda"
         self._slots = [_InputSlot(self._template, self._cuda) for _ in range(INPUT_SLOTS)]

@@ -119,7 +119,8 @@ def export_serving_module(predictor, out_dir: str, *, polymorphic_batch: bool = 
     path.  With ``polymorphic_batch`` the batch is a ``torch.export.Dim``;
     otherwise the predictor's batch is baked in."""
     if predictor.cfg.use_inverse_kinematics:
-        raise ValueError("export: the IK head (ho3d_render) serves no MANO meshes")
+        raise ValueError("export: the serving program covers the 6D pose head; the IK head "
+                         "(ho3d_render) is not exported")
     dev = predictor.device
     state = predictor.model.state_dict()
     pflat = flatten_params(state)

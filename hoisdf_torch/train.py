@@ -7,7 +7,9 @@ host-side branch gate, and the eval forward with joint voting and the
 final-layer MANO head.  While a ``torch.profiler`` runs, the steps record
 their stages as spans (``utils/profiling.py``): ``train.step`` with
 ``train.forward``, ``train.losses``, ``train.backward`` and
-``train.optimizer``; ``eval.step`` with ``eval.decode`` and ``eval.mano``.
+``train.optimizer``; ``eval.step`` with ``eval.decode`` and ``eval.mano``, or
+under the IK head ``eval.ik`` (with ``ik.template``, ``ik.solve`` and
+``ik.mano``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from hoisdf_torch.models.initializers import apply_reference_init
 from hoisdf_torch.models.mano_head import mano_head_gt, mano_head_pred
 from hoisdf_torch.ops import wire
 from hoisdf_torch.ops.heatmap import render_gaussian_heatmap
+from hoisdf_torch.ops.ik import ik_solver_mano
 from hoisdf_torch.parallel.mesh import Mesh, mean_over_ranks, world_size
 from hoisdf_torch.parallel.zero import replicate, shard_state
 from hoisdf_torch.utils.profiling import span
@@ -303,6 +306,20 @@ def vote_hand_joints(out: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.sum(votes * weights, dim=2)[-1]
 
 
+def solve_hand_ik(mano: ManoBuffers, hand_joints: torch.Tensor, mano_shape: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The IK head's hand: the voted joints [B, 20, 3] with the root (0)
+    prepended and the predicted shape [B, 10] through ``ops/ik.py``'s
+    solver, in f32 -> ``mano_joints`` [B, 21, 3] and ``mano_verts``
+    [B, 778, 3] (root-relative metres), ``mano_pose`` [B, 48] and
+    ``ik_valid`` [B] (0 where Kabsch gave a reflection)."""
+    joints = hand_joints.float()
+    joints = torch.cat([torch.zeros_like(joints[:, :1]), joints], dim=1)
+    ik = ik_solver_mano(mano, joints, mano_shape.float())
+    return {"mano_joints": ik["joints"], "mano_verts": ik["verts"], "mano_pose": ik["pose"],
+            "ik_valid": ik["vis"][:, 0]}
+
+
 def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
                    supervise_sdf: Optional[bool] = None, *, device="cuda"
                    ) -> Callable[[Mapping], Dict[str, torch.Tensor]]:
@@ -317,9 +334,11 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
 
     ``supervise_sdf`` defaults to the DexYCB behaviour (also query the SDF at
     the ground-truth sample points); pass False for serving.  Under
-    ``use_inverse_kinematics`` the step returns the shape query's
-    ``mano_shape`` [B, 10] instead of the MANO meshes (the evaluator solves
-    the pose from the voted joints)."""
+    ``use_inverse_kinematics`` the step solves the hand on the device from
+    the voted joints and the shape query's ``mano_shape`` [B, 10]
+    (:func:`solve_hand_ik`, in f32) and returns the meshes as the other
+    presets do, with the solved axis-angle ``mano_pose`` [B, 48] and the
+    Kabsch flag ``ik_valid`` [B] (int32)."""
     dev = resolve_device(device)
     disable_tf32()
     supervise = cfg.dataset == "dexycb" if supervise_sdf is None else supervise_sdf
@@ -342,6 +361,8 @@ def make_eval_step(cfg: Config, model: HOISDF, mano_buffers: ManoBuffers,
             }
             if cfg.use_inverse_kinematics:
                 preds["mano_shape"] = out["mano_shape"][-1]
+                with span("eval.ik"):
+                    preds.update(solve_hand_ik(mano, preds["hand_joints"], preds["mano_shape"]))
             else:  # MANO on the final decoder layer only, which eval reads
                 with span("eval.mano"):
                     pred_mano = mano_head_pred(mano, out["mano_pose6d"][-1:],

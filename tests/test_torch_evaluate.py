@@ -1,8 +1,10 @@
 """The port's evaluation harness against the JAX package's: ``Evaluator`` on
 the same predictions for all four presets (the pitcher exclusion and the
-codalab lists of HO3D, IK for ho3d_render and for DexYCB, the mesh metrics of
-dexycb_full), ``pad_batch`` / ``trim_batch``, and ``evaluate.main
---synthetic --cpu`` end to end.
+codalab lists of HO3D, the mesh metrics of dexycb_full; under the IK head of
+ho3d_render the JAX evaluator solves the hand itself, while the port's reads
+the meshes its eval step solved, ``train.solve_hand_ik``, here on the same
+voted joints and shape), ``pad_batch`` / ``trim_batch``, and
+``evaluate.main --synthetic --cpu`` end to end.
 
 Both sides run in f32 on the CPU.  Accumulated results agree within 1e-5
 relative (the metrics' own tolerance, ``test_torch_metrics.py``); the codalab
@@ -27,7 +29,7 @@ from hoisdf_torch.mano.layer import ManoBuffers
 from hoisdf_torch.mano.model import make_synthetic_mano
 from hoisdf_torch.models.hoisdf import build_model
 from hoisdf_torch.models.mano_head import mano_head_gt
-from hoisdf_torch.train import make_eval_step
+from hoisdf_torch.train import make_eval_step, solve_hand_ik
 from hoisdf_tpu import evaluate as JE
 from hoisdf_tpu.config import get_config as jax_get_config
 from hoisdf_tpu.data import ho3d as jax_ho3d
@@ -81,7 +83,12 @@ def test_evaluator_matches_jax(mano, setting, tmp_path):
     jev = JE.Evaluator(jax_get_config(setting), mano[1])
     for seed in (0, 1):
         preds, targets, meta, templates = _batch(mano[0], seed)
-        port.feed(preds, targets, meta, templates)
+        port_preds = preds
+        if port.cfg.use_inverse_kinematics:  # the step's hand, as the step solves it
+            hand = solve_hand_ik(mano[0], T(preds["hand_joints"]), T(preds["mano_shape"]))
+            port_preds = dict(preds, mano_joints=hand["mano_joints"].numpy(),
+                              mano_verts=hand["mano_verts"].numpy())
+        port.feed(port_preds, targets, meta, templates)
         jev.feed({k: jnp.asarray(v) for k, v in preds.items()},
                  {k: jnp.asarray(v) for k, v in targets.items()}, meta, jnp.asarray(templates))
     assert port.total == jev.total == (4 if "ho3d" in setting else 6)

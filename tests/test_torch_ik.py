@@ -1,7 +1,9 @@
-"""The port's MANO inverse kinematics (``hoisdf_torch/ops/ik.py``) against the
-JAX solver on the same seeded joints, against the original solver's golden
-``tests/golden/ik.npz``, and on the JAX package's own cases
-(``tests/test_ik.py``: the zero pose and the FK round trip).
+"""The port's MANO inverse kinematics (``hoisdf_torch/ops/ik.py``, the
+dispatcher: two MANO forwards around the ``hoisdf_torch::ik_solve`` op, whose
+CPU implementation is the plain solve) against the JAX solver on the same
+seeded joints, against the original solver's golden ``tests/golden/ik.npz``,
+and on the JAX package's own cases (``tests/test_ik.py``: the zero pose and
+the FK round trip).
 
 Both sides run in f32 on the CPU with the synthetic MANO stand-in.
 Tolerance 1e-4 absolute (metres and radians): two SVDs and a chain of

@@ -183,14 +183,28 @@ def check_bridge(preset):
 def check_eval_step(preset):
     """The port's eval step at the preset's default supervision (dexycb_full
     queries the ground-truth SDF points, the ho3d presets do not) against the
-    JAX step's outputs.  Under IK the step gives ``mano_shape`` and no MANO
-    meshes."""
+    JAX step's outputs.  Under IK the JAX step gives ``mano_shape`` and no
+    MANO meshes; the port's also solves the hand (``mano_joints``,
+    ``mano_verts``, ``mano_pose``, ``ik_valid``), held here against the JAX
+    solver on the port's own voted joints and shape (1e-4, the IK parity
+    tolerance of ``test_torch_ik.py``)."""
     pcfg = preset["pcfg"]
     model = port_model(pcfg, preset["params"], preset["stats"])
     step = make_eval_step(pcfg, model, ManoBuffers.from_model(preset["mano"]), device="cpu")
     got = {k: v.numpy() for k, v in step(preset["inputs"]).items()}
     assert ("mano_shape" in got) == pcfg.use_inverse_kinematics
-    assert ("mano_verts" in got) != pcfg.use_inverse_kinematics
+    assert "mano_verts" in got
+    if pcfg.use_inverse_kinematics:
+        from hoisdf_tpu.ops.ik import ik_solver_mano as jax_ik_solver_mano
+
+        joints = np.concatenate([np.zeros_like(got["hand_joints"][:, :1]), got["hand_joints"]],
+                                axis=1)
+        want = jax_ik_solver_mano(JaxManoBuffers.from_model(preset["mano"]), jnp.asarray(joints),
+                                  jnp.asarray(got["mano_shape"]))
+        for k, w in (("mano_joints", "joints"), ("mano_verts", "verts"), ("mano_pose", "pose")):
+            np.testing.assert_allclose(got.pop(k), np.asarray(want[w]), rtol=0, atol=1e-4,
+                                       err_msg=k)
+        np.testing.assert_array_equal(got.pop("ik_valid"), np.asarray(want["vis"]).ravel())
     assert_eval_matches_jax(got, preset["want"], pcfg)
 
 
